@@ -1,0 +1,72 @@
+"""oncilla_tpu_torch: the oncilla disaggregated-memory runtime on PyTorch and
+CUDA, beside the JAX package ``oncilla_tpu`` (the reference it is held to).
+
+This package imports nothing of JAX or of ``oncilla_tpu``. Its entry points
+run on a CUDA device unless the caller passes ``device="cpu"``; without CUDA
+and without that request they raise ``OcmDeviceError``.
+
+Served so far: the single-node data plane (``ocm_init`` -> ``alloc`` ->
+``put``/``get`` -> ``copy`` -> ``free`` on LOCAL_HOST and LOCAL_DEVICE
+handles) with hand-written CUDA copy kernels for aligned transfers
+(:mod:`oncilla_tpu_torch.ops.dma`), and Llama paged-KV decode over it
+(:mod:`oncilla_tpu_torch.models`). Public API mirrors inc/oncillamem.h:69-89
+of the reference.
+"""
+
+from oncilla_tpu_torch.core.arena import ArenaAllocator, Extent
+from oncilla_tpu_torch.core.context import (
+    Ocm,
+    ocm_alloc,
+    ocm_alloc_kind,
+    ocm_copy,
+    ocm_copy_in,
+    ocm_copy_onesided,
+    ocm_copy_out,
+    ocm_free,
+    ocm_init,
+    ocm_is_remote,
+    ocm_localbuf,
+    ocm_remote_sz,
+    ocm_tini,
+)
+from oncilla_tpu_torch.core.errors import (
+    OcmBoundsError,
+    OcmConnectError,
+    OcmDeviceError,
+    OcmError,
+    OcmInvalidHandle,
+    OcmOutOfMemory,
+)
+from oncilla_tpu_torch.core.handle import OcmAlloc
+from oncilla_tpu_torch.core.kinds import Fabric, OcmKind
+from oncilla_tpu_torch.utils.config import OcmConfig
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ArenaAllocator",
+    "Extent",
+    "Fabric",
+    "Ocm",
+    "OcmAlloc",
+    "OcmBoundsError",
+    "OcmConfig",
+    "OcmConnectError",
+    "OcmDeviceError",
+    "OcmError",
+    "OcmInvalidHandle",
+    "OcmKind",
+    "OcmOutOfMemory",
+    "ocm_alloc",
+    "ocm_alloc_kind",
+    "ocm_copy",
+    "ocm_copy_in",
+    "ocm_copy_onesided",
+    "ocm_copy_out",
+    "ocm_free",
+    "ocm_init",
+    "ocm_is_remote",
+    "ocm_localbuf",
+    "ocm_remote_sz",
+    "ocm_tini",
+]

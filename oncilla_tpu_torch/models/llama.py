@@ -1,0 +1,263 @@
+"""Llama-style decoder, decode half, in plain PyTorch.
+
+The counterpart of ``oncilla_tpu/models/llama.py`` for single-token decode:
+the same parameter names and shapes (weights ``(dim, heads*head_dim)``,
+layers stacked on a leading axis), the same ``(B, H, S, Hd)`` attention
+layout, bf16 activations with fp32 norms, scores and softmax. Attention is
+written as plain matmul + softmax over *unexpanded* GQA K/V, as the JAX
+``grouped_attention`` is, so the two packages compare like with like.
+
+Differences from the JAX package, by PyTorch idiom: parameters are a plain
+dict of tensors on an explicit device; random init takes a
+``torch.Generator`` (its numbers differ from ``jax.random``'s, so tests
+carry JAX's parameters across with :func:`params_from_jax`); and
+:func:`decode_step` writes the new K/V into the cache in place instead of
+returning a functional copy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from oncilla_tpu_torch.utils.platform import resolve_device
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A dtype name of the JAX package ("bfloat16") as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab: int = 32000
+    dim: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    ffn_hidden: int = 1408
+    max_seq: int = 2048
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    # Sliding-window attention: each token attends to at most its last
+    # `window` positions. None = full causal attention.
+    window: int | None = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @staticmethod
+    def tiny() -> "LlamaConfig":
+        """Test-size config."""
+        return LlamaConfig(
+            vocab=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            ffn_hidden=128, max_seq=128, dtype="float32",
+        )
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        """Llama-3-8B geometry (BASELINE.md config 5)."""
+        return LlamaConfig(
+            vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+            ffn_hidden=14336, max_seq=8192, rope_theta=500000.0,
+        )
+
+
+LAYER_KEYS = (
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln_attn", "ln_mlp"
+)
+
+
+def param_spec(cfg: LlamaConfig) -> dict:
+    """{name: (shape, init_scale | None)} for every weight; None means a
+    ones-initialised fp32 norm gain (the JAX package's spec)."""
+    L, D, H, KV, Hd, Fh = (
+        cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.ffn_hidden,
+    )
+    s_in = 1.0 / np.sqrt(D)
+    s_out = 1.0 / np.sqrt(2 * L * D)
+    return {
+        "embed": ((cfg.vocab, D), 1.0),
+        "wq": ((L, D, H * Hd), s_in),
+        "wk": ((L, D, KV * Hd), s_in),
+        "wv": ((L, D, KV * Hd), s_in),
+        "wo": ((L, H * Hd, D), s_out),
+        "w_gate": ((L, D, Fh), s_in),
+        "w_up": ((L, D, Fh), s_in),
+        "w_down": ((L, Fh, D), s_out),
+        "ln_attn": ((L, D), None),
+        "ln_mlp": ((L, D), None),
+        "ln_out": ((D,), None),
+        "lm_head": ((D, cfg.vocab), s_in),
+    }
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
+                device=None, seed: int = 0) -> dict:
+    """Scaled-normal init on ``device`` from ``generator`` (one on that
+    device, seeded with ``seed``, when not given). Stacked leaves are drawn
+    one layer at a time so the fp32 draw never holds a whole leaf."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.dtype)
+    out = {}
+    for name, (shape, scale) in param_spec(cfg).items():
+        if scale is None:
+            out[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+            continue
+        t = torch.empty(shape, dtype=dt, device=dev)
+        for part in (t if len(shape) == 3 else [t]):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32, device=dev) * scale)
+        out[name] = t
+    return out
+
+
+def params_from_jax(np_params: dict, device=None) -> dict:
+    """The JAX package's parameters, handed over as numpy arrays (any
+    dtype numpy holds, bf16 included), as tensors on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for name, arr in np_params.items():
+        arr = np.asarray(arr)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        out[name] = t.to(dev)
+    return out
+
+
+def layer_params(params: dict, i: int) -> dict:
+    return {k: params[k][i] for k in LAYER_KEYS}
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale * w).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, H, S, Hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    ))
+    if positions.ndim == 1:
+        ang = (positions[:, None].float() * freqs[None, :])[None, None]
+    else:
+        ang = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def grouped_attention(q, k, v):
+    """Dense attention with unexpanded GQA K/V, fp32 scores and softmax,
+    over every key given (callers pass the slice of valid keys).
+
+    q: (B, H, Sq, D); k/v: (B, KV, Sk, D) with KV dividing H. Returns
+    (B, H, Sq, D) in q's dtype."""
+    B, H, Sq, D = q.shape
+    KV = k.shape[1]
+    q5 = q.reshape(B, KV, H // KV, Sq, D).float()
+    scale = 1.0 / np.sqrt(D)
+    s = torch.matmul(q5, k.float().unsqueeze(2).transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.matmul(p, v.float().unsqueeze(2))
+    return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def block(cfg: LlamaConfig, x, lp, positions, attend):
+    """One transformer block. x: (B, S, D); ``attend(q, kn, vn)`` gets the
+    rotary-embedded q (B, H, S, Hd) and unexpanded K/V (B, KV, S, Hd) and
+    returns (B, H, S, Hd)."""
+    B, S, _ = x.shape
+    H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    h = rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, S, H, Hd)
+    kn = (h @ lp["wk"]).reshape(B, S, KV, Hd)
+    vn = (h @ lp["wv"]).reshape(B, S, KV, Hd)
+    q = rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    kn = rope(kn.transpose(1, 2), positions, cfg.rope_theta)
+    vn = vn.transpose(1, 2)
+    attn = attend(q, kn, vn)
+    attn = attn.transpose(1, 2).reshape(B, S, H * Hd)
+    x = x + attn @ lp["wo"]
+
+    h = rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+def final_logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
+    x = rmsnorm(x, params["ln_out"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy next-token ids (B,) from logits (B, vocab)."""
+    return torch.argmax(logits, dim=-1)
+
+
+def decode_step(
+    params: dict,
+    token: torch.Tensor,      # (B,) current token ids
+    pos: int,                 # current position
+    kv_cache: tuple,          # (k, v) each (L, B, KV, T, Hd)
+    cfg: LlamaConfig,
+):
+    """Single-token decode over a contiguous cache: returns
+    (logits (B, vocab) fp32, kv_cache). This token's K/V are written into
+    the cache at ``pos`` in place.
+
+    Attention reads the slice of keys that are valid, ``[lo, pos]`` (``lo``
+    the start of the sliding window, else 0), where the JAX package masks a
+    static-length cache: eager PyTorch needs no static shapes, and the paged
+    decoder attends over the same slice, so the two do the same arithmetic
+    on the same shapes."""
+    pos = int(pos)
+    dev = token.device
+    x = params["embed"][token][:, None, :].to(torch_dtype(cfg.dtype))
+    k_cache, v_cache = kv_cache
+    positions = torch.tensor([pos], device=dev)
+    lo = 0 if cfg.window is None else max(0, pos - cfg.window + 1)
+
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+
+        def attend(q, kn, vn, i=i):
+            k_cache[i, :, :, pos] = kn[:, :, 0].to(k_cache.dtype)
+            v_cache[i, :, :, pos] = vn[:, :, 0].to(v_cache.dtype)
+            return grouped_attention(
+                q, k_cache[i, :, :, lo:pos + 1].to(q.dtype),
+                v_cache[i, :, :, lo:pos + 1].to(q.dtype),
+            )
+
+        x = block(cfg, x, lp, positions, attend)
+
+    return final_logits(params, x, cfg)[:, 0], (k_cache, v_cache)
+
+
+def make_kv_cache(cfg: LlamaConfig, batch: int, dtype=None, device=None):
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))

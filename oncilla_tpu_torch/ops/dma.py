@@ -1,0 +1,273 @@
+"""Arena copy kernels: put (K1), get (K2) and same-device copy (K3).
+
+The counterparts of the local half of ``oncilla_tpu/ops/pallas_ici.py``:
+
+=============  ==========================  ===============================
+wrapper        replaces (Pallas TPU)       CUDA entry point (csrc/dma.cu)
+=============  ==========================  ===============================
+write_rows     pallas_write_rows  (:537)   ocm_write_rows
+read_rows      pallas_read_rows   (:464)   ocm_read_rows
+local_copy     pallas_local_copy  (:396)   ocm_local_copy
+=============  ==========================  ===============================
+
+Each wrapper has the JAX function's signature and asserts (BLOCK-aligned
+offsets and size; disjoint ranges for ``local_copy``) and a plain PyTorch
+version beside it (slice assignment). A wrapper takes the plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel, or
+raises if the kernel cannot be built or refuses the launch. Each wrapper
+counts its kernel launches in ``<wrapper>.launches`` (a plain int, reset
+with :func:`reset_launches`); plain-version calls are not counted.
+
+The kernels are built from ``csrc/dma.cu`` at first use with ``nvcc`` into
+``build/oncilla_tpu_torch/`` beside the package (a plain C interface loaded
+with ``ctypes``), so a checkout needs nothing prebuilt. What bounds them
+and how they are designed is noted in the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+BLOCK = 4096  # bytes per addressable block (one (32, 128) uint8 TPU tile)
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_SOURCES = ("dma.cu",)
+_BUILD_DIR = _PKG.parent / "build" / "oncilla_tpu_torch"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_LOG: dict[str, str] = {}
+
+
+def pallas_supported(offset_a: int, offset_b: int, nbytes: int) -> bool:
+    """Whether a transfer may take the kernels: BLOCK-aligned offsets and a
+    positive BLOCK-multiple size (the JAX package's predicate, same name)."""
+    return (
+        offset_a % BLOCK == 0 and offset_b % BLOCK == 0 and
+        nbytes % BLOCK == 0 and nbytes > 0
+    )
+
+
+# -- build -----------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build csrc/")
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
+
+
+def build() -> float:
+    """Compile every source under ``csrc/`` that has no up-to-date library,
+    one ``nvcc`` per source, all started together. Returns the seconds it
+    took; raises with the compiler's output if any build fails. ptxas's
+    register/spill report of each source lands in ``BUILD_LOG``."""
+    t0 = time.perf_counter()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in _SOURCES:
+        src = _CSRC / name
+        out = _target(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(_target(_CSRC / "dma.cu")))
+            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.ocm_write_rows.argtypes = [ci, vp, vp, ll, ll, vp]
+            lib.ocm_read_rows.argtypes = [ci, vp, vp, ll, ll, vp]
+            lib.ocm_local_copy.argtypes = [ci, vp, ll, ll, ll, vp]
+            for fn in (lib.ocm_write_rows, lib.ocm_read_rows, lib.ocm_local_copy):
+                fn.restype = ci
+            lib.ocm_error_string.argtypes = [ci]
+            lib.ocm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.ocm_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+# -- argument checks shared by the kernel and its plain version -------------
+
+
+def _flat_arena(buf: torch.Tensor) -> torch.Tensor:
+    if buf.dtype != torch.uint8 or not buf.is_contiguous():
+        raise ValueError("arena must be a contiguous uint8 tensor")
+    assert buf.numel() % BLOCK == 0, "arena must be BLOCK-aligned"
+    return buf.view(-1)
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True: launch the kernel (CUDA tensor); False: plain version (CPU)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no copy kernel for device {t.device}")
+
+
+def _ptr16(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("copy kernels need 16-byte aligned tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# -- K1: put ----------------------------------------------------------------
+
+
+def write_rows_plain(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor:
+    flat = buf.view(-1)
+    flat[start:start + raw.numel()] = raw.reshape(-1)
+    return buf
+
+
+def write_rows(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor:
+    """One-sided put of flat uint8 ``raw`` (BLOCK-multiple size) into the
+    arena at byte offset ``start``, in place; returns ``buf``."""
+    flat = _flat_arena(buf)
+    nbytes = raw.numel()
+    assert start % BLOCK == 0 and nbytes % BLOCK == 0 and nbytes > 0
+    assert start + nbytes <= flat.numel(), "write past the arena's end"
+    if raw.dtype != torch.uint8 or not raw.is_contiguous():
+        raise ValueError("rows must be a contiguous uint8 tensor")
+    if raw.device != buf.device:
+        raise ValueError(f"rows on {raw.device}, arena on {buf.device}")
+    if not _route(buf):
+        return write_rows_plain(buf, raw, start)
+    _ptr16(flat, raw)
+    lib = _load()
+    _check(lib, lib.ocm_write_rows(
+        buf.device.index, flat.data_ptr(), raw.data_ptr(), start, nbytes,
+        _stream(buf)), "write_rows")
+    write_rows.launches += 1
+    return buf
+
+
+write_rows.launches = 0
+
+
+# -- K2: get ----------------------------------------------------------------
+
+
+def read_rows_plain(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
+    return buf.view(-1)[start:start + nbytes].clone()
+
+
+def read_rows(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
+    """One-sided get of a BLOCK-aligned extent as a fresh flat uint8 tensor
+    on the arena's device."""
+    flat = _flat_arena(buf)
+    assert start % BLOCK == 0 and nbytes % BLOCK == 0 and nbytes > 0
+    assert start + nbytes <= flat.numel(), "read past the arena's end"
+    if not _route(buf):
+        return read_rows_plain(buf, start, nbytes)
+    out = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
+    _ptr16(flat, out)
+    lib = _load()
+    _check(lib, lib.ocm_read_rows(
+        buf.device.index, flat.data_ptr(), out.data_ptr(), start, nbytes,
+        _stream(buf)), "read_rows")
+    read_rows.launches += 1
+    return out
+
+
+read_rows.launches = 0
+
+
+# -- K3: same-device extent copy --------------------------------------------
+
+
+def local_copy_plain(buf: torch.Tensor, src_off: int, dst_off: int,
+                     nbytes: int) -> torch.Tensor:
+    flat = buf.view(-1)
+    flat[dst_off:dst_off + nbytes] = flat[src_off:src_off + nbytes]
+    return buf
+
+
+def local_copy(buf: torch.Tensor, src_off: int, dst_off: int,
+               nbytes: int) -> torch.Tensor:
+    """In-place copy of arena bytes [src_off, +nbytes) to [dst_off, +nbytes)
+    on one device. Offsets and size BLOCK-aligned; the ranges must not
+    overlap. Returns ``buf``."""
+    flat = _flat_arena(buf)
+    assert pallas_supported(int(src_off), int(dst_off), nbytes)
+    assert (
+        int(src_off) + nbytes <= int(dst_off)
+        or int(dst_off) + nbytes <= int(src_off)
+    ), "overlapping ranges are unsafe for a raw copy; use DeviceArena.move"
+    assert max(src_off, dst_off) + nbytes <= flat.numel(), "copy past the arena's end"
+    if not _route(buf):
+        return local_copy_plain(buf, src_off, dst_off, nbytes)
+    _ptr16(flat)
+    lib = _load()
+    _check(lib, lib.ocm_local_copy(
+        buf.device.index, flat.data_ptr(), src_off, dst_off, nbytes,
+        _stream(buf)), "local_copy")
+    local_copy.launches += 1
+    return buf
+
+
+local_copy.launches = 0
+
+KERNELS = (write_rows, read_rows, local_copy)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}

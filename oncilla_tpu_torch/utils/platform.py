@@ -1,0 +1,28 @@
+"""Device selection: CUDA unless the caller asks for the CPU.
+
+Every entry point of the package takes a ``device`` argument and resolves it
+here. ``None`` means the first CUDA device; on a machine without CUDA that
+raises :class:`OcmDeviceError` — it never falls back to the CPU, which would
+hide the device a measurement claims to run on. The CPU is used only when
+asked for by name (``device="cpu"``), as the tests do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from oncilla_tpu_torch.core.errors import OcmDeviceError
+
+
+def resolve_device(device=None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise OcmDeviceError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise OcmDeviceError(f"unsupported device {dev}")
+    return dev
