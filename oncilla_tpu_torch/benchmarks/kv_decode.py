@@ -29,7 +29,7 @@ import torch
 
 from oncilla_tpu_torch.core.kinds import OcmKind
 from oncilla_tpu_torch.models import llama
-from oncilla_tpu_torch.models.kv_paging import BucketedPagedDecoder
+from oncilla_tpu_torch.models.kv_paging import BucketedPagedDecoder, page_bytes
 from oncilla_tpu_torch.utils.platform import resolve_device
 
 MODES = ("plain", "device", "host")
@@ -115,9 +115,8 @@ def run_bench(tokens_n: int = 384, page_tokens: int = 128, modes=MODES,
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab, size=(1, tokens_n), dtype=np.int64)
     ).to(dev)
-    page_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * page_tokens
-                  * cfg.head_dim * llama.torch_dtype(cfg.dtype).itemsize)
-    arena = max(64 << 20, 2 * (tokens_n // page_tokens) * page_bytes)
+    page = page_bytes(cfg, page_tokens, cfg.dtype)
+    arena = max(64 << 20, 2 * (tokens_n // page_tokens) * page)
     ctx = ocm.ocm_init(
         ocm.OcmConfig(host_arena_bytes=arena, device_arena_bytes=arena),
         device=dev,

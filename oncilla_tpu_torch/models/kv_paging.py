@@ -15,7 +15,6 @@ into the tail buffer in place.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 
 import torch
@@ -26,6 +25,13 @@ from oncilla_tpu_torch.core.kinds import OcmKind
 from oncilla_tpu_torch.models import llama
 from oncilla_tpu_torch.models.llama import LlamaConfig, torch_dtype
 from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
+
+
+def page_bytes(cfg: LlamaConfig, page_tokens: int, dtype: str,
+               batch: int = 1) -> int:
+    """Bytes of one KV page: K and V of every layer for ``page_tokens``."""
+    return (2 * cfg.n_layers * batch * cfg.n_kv_heads * page_tokens
+            * cfg.head_dim * torch_dtype(dtype).itemsize)
 
 
 @dataclass
@@ -57,7 +63,7 @@ class PagedKVCache:
 
     @property
     def page_bytes(self) -> int:
-        return math.prod(self.page_shape) * torch_dtype(self.dtype).itemsize
+        return page_bytes(self.cfg, self.page_tokens, self.dtype, self.batch)
 
     @property
     def tokens_paged(self) -> int:
@@ -77,7 +83,7 @@ class PagedKVCache:
     def _recv_slots(self, npages: int) -> torch.Tensor | None:
         """One reusable receive buffer with a page-sized slot per page, for
         host kinds; None for device kinds (their gets stay on the card)."""
-        if self.kind not in (OcmKind.REMOTE_HOST, OcmKind.LOCAL_HOST):
+        if self.kind != OcmKind.LOCAL_HOST:
             return None
         need = self.page_bytes * npages
         if self._recvbuf is None or self._recvbuf.numel() < need:

@@ -182,6 +182,16 @@ def test_paged_matches_unpaged_in_the_port(params, dtype, window):
         np.testing.assert_array_equal(logits[t], lg[0].numpy())
 
 
+@pytest.mark.parametrize("batch,dtype", [(1, "bfloat16"), (3, "float32")])
+def test_page_bytes_matches_the_page_layout(batch, dtype):
+    cfg = tllama.LlamaConfig.llama3_8b()
+    cache = tkv.PagedKVCache(None, cfg, batch, page_tokens=128, dtype=dtype)
+    want = int(np.prod(cache.page_shape)) * tllama.torch_dtype(dtype).itemsize
+    assert tkv.page_bytes(cfg, 128, dtype, batch) == cache.page_bytes == want
+    if (batch, dtype) == (1, "bfloat16"):
+        assert want == 16 << 20  # one Llama-3-8B page
+
+
 def test_fetch_pages_roundtrip_host_and_device(rng):
     cfg = tllama.LlamaConfig.tiny()
     ctx = tocm.ocm_init(tocm.OcmConfig(host_arena_bytes=1 << 20,
