@@ -27,14 +27,31 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    are held against the unpaged ``decode_step``; tokens/s of the plain,
    device and host modes of the kv_decode harness; one ``torch.profiler``
    window of paged decode (device busy share, kernel time by name).
+6. fabric — the one-sided device fabric on a 4-row ``SpmdIciPlane`` whose
+   rows (2 GiB - 4 KiB each, the largest the JAX plane allows) all lie on
+   the one card: the one-sided copy K4 against its plain version, byte for
+   byte, across rows up to 1 GiB, within a row (local fast path) and as a
+   ``force_remote`` loopback up to 512 MiB, with extents touching a row's
+   last block and every other byte of the fabric checked unchanged; then
+   REMOTE_DEVICE handles booked by :class:`BookingBackend` (put/get/copy
+   through the plane, ``Ocm(remote=...).copy`` riding K4 with no get) and
+   ``ring_shift`` both ways; then ``copy_bench`` at ``bench.py``'s sizes
+   (its JSON line; its segment checks must pass), and the copy loops K9
+   and K10 against their plain loops at 3 iterations.
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --across-cards`` (two or more cards) runs phases 1-2
+and phase 6's one-sided copies and handle path with the 4 rows on
+different cards: the fabric's cross-card form, peer-mapped stores over
+NVLink.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -46,21 +63,31 @@ import torch
 GiB = 1 << 30
 MiB = 1 << 20
 KiB = 1 << 10
+BLOCK = 4096  # the fabric's and the copy kernels' block
 
-# Datasheet HBM rates (bytes/s), most specific name first.
-_HBM_RATE = (
-    ("H200", 4.8e12),
-    ("H100 NVL", 3.9e12),
-    ("H100 PCIe", 2.0e12),
-    ("H100", 3.35e12),  # H100 SXM5 80GB HBM3
-)
-
-# Where each kernel's Pallas original is (file:line of its pallas_call).
+# Where each kernel's Pallas original is (file:line of its pallas_call),
+# and the source of the kernel that replaces it.
 _REPLACES = {
     "write_rows": "oncilla_tpu/ops/pallas_ici.py:552",
     "read_rows": "oncilla_tpu/ops/pallas_ici.py:481",
     "local_copy": "oncilla_tpu/ops/pallas_ici.py:418",
+    "onesided_copy": "oncilla_tpu/ops/pallas_ici.py:145",
+    "copy_loop": "bench.py:150",
+    "remote_loop": "bench.py:223",
 }
+_SOURCE = {
+    "write_rows": "oncilla_tpu_torch/csrc/dma.cu",
+    "read_rows": "oncilla_tpu_torch/csrc/dma.cu",
+    "local_copy": "oncilla_tpu_torch/csrc/dma.cu",
+    "onesided_copy": "oncilla_tpu_torch/csrc/fabric.cu",
+    "copy_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
+    "remote_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
+}
+_DMA_KERNELS = ("write_rows", "read_rows", "local_copy")
+
+# NVLink between two H100 SXM cards, each way (datasheet): the bound of a
+# copy between rows on different cards.
+NVLINK_RATE = 450e9
 
 # Paged vs unpaged logits, bf16 weights and activations on both sides, are
 # required to be equal bit for bit (tolerance 0). Both paths attend over
@@ -76,13 +103,6 @@ N_REQUESTS = 3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def hbm_rate(name: str) -> float:
-    for key, rate in _HBM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no datasheet HBM rate for card {name!r}")
 
 
 def event_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -117,12 +137,16 @@ def iters_for(nbytes: int) -> int:
 
 
 def phase_device() -> dict:
-    smi = subprocess.run(
+    from oncilla_tpu_torch.utils.platform import hbm_rate
+
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = cards[0]
     name = torch.cuda.get_device_name(0)
-    log(f"[device] nvidia-smi: {smi}")
+    for i, line in enumerate(cards):
+        log(f"[device] nvidia-smi: {line}" + (f" (card {i})" if len(cards) > 1 else ""))
     log(f"[device] torch: {name}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, count {torch.cuda.device_count()}")
     return {"smi": smi, "name": name, "hbm_rate": hbm_rate(name)}
@@ -155,7 +179,7 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
     gen = torch.Generator(device=device).manual_seed(0)
     arena.copy_(torch.randint(0, 256, (arena_bytes,), generator=gen,
                               dtype=torch.uint8, device=device))
-    rows = {k: [] for k in _REPLACES}
+    rows = {k: [] for k in _DMA_KERNELS}
     for n in sizes:
         raw = torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8,
                             device=device)
@@ -495,14 +519,304 @@ def phase_serving(device, cfg, n_requests: int, prompt_len: int, n_gen: int,
             "pages_per_request": npages}
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+
+class BookingBackend:
+    """Stands in for the daemon behind ``Ocm(remote=...)``: books
+    REMOTE_DEVICE extents on the rows of an ``SpmdIciPlane`` (one
+    ``ArenaAllocator`` a row, rows taken in turn, so no two live extents
+    overlap), scrubs each at alloc as the daemon client does, serves
+    put/get from the plane, and carries it as ``ici_plane`` so that
+    ``Ocm.copy`` between two of its handles rides the one-sided fabric."""
+
+    def __init__(self, plane, alignment: int = 4096):
+        from oncilla_tpu_torch.core.arena import ArenaAllocator
+
+        self.ici_plane = plane
+        self._books = [ArenaAllocator(plane.config.device_arena_bytes, alignment)
+                       for _ in plane.mesh]
+        self._rows = itertools.cycle(range(len(self._books)))
+        self._ids = itertools.count(2, 2)  # even ids, as the daemon's
+
+    def _row(self, handle) -> int:
+        return handle.rank * self.ici_plane.devices_per_rank + handle.device_index
+
+    def alloc(self, nbytes: int, kind):
+        from oncilla_tpu_torch import Fabric, OcmAlloc, OcmConnectError, OcmKind
+
+        if kind != OcmKind.REMOTE_DEVICE:
+            raise OcmConnectError(f"this backend books REMOTE_DEVICE only, not {kind}")
+        g = next(self._rows)
+        dpr = self.ici_plane.devices_per_rank
+        h = OcmAlloc(
+            alloc_id=next(self._ids), kind=kind, fabric=Fabric.ICI,
+            nbytes=nbytes, rank=g // dpr, device_index=g % dpr,
+            extent=self._books[g].alloc(nbytes), origin_rank=0,
+        )
+        self.ici_plane.scrub(h)
+        return h
+
+    def free(self, handle) -> None:
+        self._books[self._row(handle)].free(handle.extent)
+
+    def put(self, handle, data, offset: int) -> None:
+        self.ici_plane.put(handle, data, offset)
+
+    def get(self, handle, nbytes: int, offset: int):
+        return self.ici_plane.get(handle, nbytes, offset)
+
+
+def _fabric_cases(row_bytes: int, sizes):
+    """(case, size, src row, dst row, src_off, dst_off, force_remote): across
+    rows at every size; within a row (local fast path) and as a loopback at
+    every size that fits twice in a row. Every case touches a row's last
+    block with its source or its destination."""
+    for n in sizes:
+        yield "cross_row", n, 0, 1, BLOCK, row_bytes - n, False
+        if 2 * n <= row_bytes:
+            yield "same_row", n, 2, 2, 0, row_bytes - n, False
+            yield "loopback", n, 3, 3, row_bytes - n, 0, True
+
+
+def _same_rows(want, got, what: str) -> None:
+    for r, (a, b) in enumerate(zip(want.rows, got.rows)):
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()
+            lo, hi = int(bad[0]), int(bad[-1])
+            err = int((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+            raise AssertionError(f"{what}: row {r} differs from the plain "
+                                 f"version in [{lo}, {hi}] (max byte error {err})")
+
+
+def phase_fabric(device, row_bytes: int, sizes, rate: float,
+                 handle_sizes, ring_bytes: int, bench_kw: dict,
+                 timing: bool = True, check_launches: bool = True,
+                 mesh=None, with_bench: bool = True) -> dict:
+    """The fabric: K4 against its plain version on a 4-row plane, then the
+    handle-level main path, then (``with_bench``) copy_bench and the copy
+    loops on ``device``. The rows lie on ``mesh`` (4 devices), by default
+    all on ``device``; rows on different cards make the cross-row cases
+    cross-card, bounded by NVLink as well as HBM."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.benchmarks import copy_bench
+    from oncilla_tpu_torch.ops import copy_loops, dma, fabric
+    from oncilla_tpu_torch.ops.ici import SpmdIciPlane
+    from oncilla_tpu_torch.parallel import spmd_arena as sa
+
+    on_card = device.type == "cuda"
+    mesh = [device] * 4 if mesh is None else mesh
+    t0 = time.perf_counter()
+    plane = SpmdIciPlane(ocm.OcmConfig(device_arena_bytes=row_bytes),
+                         mesh=mesh, devices_per_rank=4)
+    arena = plane.arena
+    gen = torch.Generator(device=device).manual_seed(2)
+    for row in arena.rows:
+        row.copy_(torch.empty_like(row, device=device).random_(0, 256, generator=gen))
+
+    # 1. K4 against its plain version, every byte of every row compared.
+    k4 = []
+    for case, n, a, b, so, do, force in _fabric_cases(row_bytes, sizes):
+        ref = fabric.FabricRows([r.clone() for r in arena.rows])
+        fabric.onesided_copy_plain(ref, a, b, so, do, n)
+        fabric.onesided_copy(arena, a, b, so, do, n, force_remote=force)
+        _same_rows(ref, arena, f"onesided_copy {case} {n} B")
+        del ref
+        bound_s = 2 * n / rate
+        if mesh[a] != mesh[b]:
+            bound_s = max(bound_s, n / NVLINK_RATE)
+        rec = {"case": case, "nbytes": n, "max_abs_err": 0.0,
+               "devices": f"{mesh[a]}->{mesh[b]}", "bound_ms": bound_s * 1e3}
+        if timing:
+            src = arena.rows[a][so:so + n]
+            dst = arena.rows[b][do:do + n]
+            it = iters_for(n)
+            # Timed on the destination's stream, where a copy completes (a
+            # send across cards first waits for that stream's earlier work).
+            with torch.cuda.device(mesh[b]):
+                rec["ms"] = event_ms(lambda: fabric.onesided_copy(
+                    arena, a, b, so, do, n, force_remote=force), it)
+                rec["plain_ms"] = event_ms(lambda: fabric.onesided_copy_plain(
+                    arena, a, b, so, do, n), it)
+                rec["library_ms"] = event_ms(lambda: dst.copy_(src), it)
+        k4.append(rec)
+        log(f"[fabric] onesided_copy {case:9s} {rec['devices']} {n:>11d} B "
+            "max_abs_err 0 " + (
+            f"ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+            f"library_ms={rec['library_ms']:.6f} bound_ms={rec['bound_ms']:.6f}"
+            if timing else ""))
+    if on_card:
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+        flags = [[int(v) for v in w.cpu()] for w in arena.sync]
+        want = [[q, 0] for q in arena.seq]
+        if flags != want or not any(arena.seq):
+            raise AssertionError(f"recv flags / send counters {flags}, want {want}")
+        log(f"[fabric] recv flags after the protocol runs: {flags}")
+
+    # 2. The handle-level main path: counts from 0 just before, read after.
+    backend = BookingBackend(plane)
+    ctx = ocm.Ocm(ocm.OcmConfig(host_arena_bytes=1 << 20,
+                                device_arena_bytes=1 << 20),
+                  remote=backend, device=device)
+    rng = np.random.default_rng(3)
+    dma.reset_launches()
+    copies0 = plane.stats["ici_copies"]
+    for n in handle_sizes:
+        hs = [ctx.alloc(n, OcmKind.REMOTE_DEVICE) for _ in range(5)]
+        data = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(device)
+        ctx.put(hs[0], data)
+        if not torch.equal(ctx.get(hs[0]).to(device), data):
+            raise AssertionError(f"put/get through the plane mismatch at {n} B")
+        # rows 0 -> 1 through Ocm.copy, 1 -> 2 through the plane, 0 -> 0
+        # (hs[4] shares row 0) through Ocm.copy again.
+        for dst, src, via_ctx in ((hs[1], hs[0], True), (hs[2], hs[1], False),
+                                  (hs[4], hs[0], True)):
+            gets = plane.stats["gets"]
+            if via_ctx:
+                ctx.copy(dst, src)
+            else:
+                plane.copy(dst, src, n)
+            if plane.stats["gets"] != gets:
+                raise AssertionError("a REMOTE_DEVICE copy went through get")
+            if not torch.equal(plane.get(dst, n).to(device), data):
+                raise AssertionError(f"one-sided handle copy mismatch at {n} B")
+        for h in hs:
+            ctx.free(h)
+    ctx.tini()
+    if on_card:
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+    handle_launches = dma.launches()
+    copies = plane.stats["ici_copies"] - copies0
+    log(f"[fabric] handle-level: {copies} ici_copies, launches {handle_launches}")
+    if copies != 3 * len(handle_sizes):
+        raise AssertionError(f"{copies} ici_copies, want {3 * len(handle_sizes)}")
+    if check_launches and handle_launches["onesided_copy"] < copies:
+        raise AssertionError("a handle copy did not launch the one-sided kernel")
+
+    # ring_shift over the 4 rows, then back.
+    off = row_bytes - ring_bytes
+    stamps = [torch.full((ring_bytes,), 17 * (i + 1), dtype=torch.uint8,
+                         device=device) for i in range(4)]
+    for i, st in enumerate(stamps):
+        sa.host_put(arena, i, st, off)
+    plane.update(lambda a: sa.ring_shift(a, off, ring_bytes))
+    for i in range(4):
+        got = sa.host_get(arena, (i + 1) % 4, ring_bytes, off).to(device)
+        if not torch.equal(got, stamps[i]):
+            raise AssertionError(f"ring_shift: row {(i + 1) % 4} lacks row {i}'s bytes")
+    plane.update(lambda a: sa.ring_shift(a, off, ring_bytes, reverse=True))
+    for i in range(4):
+        if not torch.equal(sa.host_get(arena, i, ring_bytes, off).to(device), stamps[i]):
+            raise AssertionError(f"ring_shift reverse: row {i} not restored")
+    del plane, arena, backend, stamps
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[fabric] one-sided copies, handles, ring_shift: "
+        f"{time.perf_counter() - t0:.3f} s")
+    if not with_bench:
+        return {"rows": {"onesided_copy": k4}, "launches_handles": handle_launches}
+
+    # 3. copy_bench (a main path of its own), then K9/K10 against their
+    # plain loops at a small odd count.
+    dma.reset_launches()
+    bench = copy_bench.run(device, timing=timing, **bench_kw)
+    if on_card:
+        torch.cuda.synchronize(device)
+    bench_launches = dma.launches()
+    log("[copy_bench] " + json.dumps(bench))
+    log(f"[copy_bench] launches {bench_launches}")
+    if not bench["ok"]:
+        raise AssertionError(f"copy_bench failed: {bench['detail'].get('errors')}")
+    if check_launches and not (bench_launches["copy_loop"]
+                               and bench_launches["remote_loop"]):
+        raise AssertionError("copy_bench did not launch K9 and K10")
+
+    nbytes, total = bench_kw["nbytes"], bench_kw["arena_bytes"]
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    buf.random_(0, 256, generator=gen)
+    loops = {"copy_loop": [], "remote_loop": []}
+    for name, streams in (("copy_loop", 2), ("copy_loop", 4), ("remote_loop", 2)):
+        want, got = buf.clone(), buf.clone()
+        if name == "copy_loop":
+            copy_loops.copy_loop_plain(want, nbytes, 3, streams)
+            copy_loops.copy_loop(got, nbytes, 3, streams)
+        else:
+            copy_loops.remote_loop_plain(want, nbytes, 3)
+            copy_loops.remote_loop(got, nbytes, 3)
+        if not torch.equal(want, got):
+            raise AssertionError(f"{name} at {streams} streams differs from "
+                                 "its plain loop after 3 iterations")
+        loops[name].append({"streams": streams, "iters": 3, "max_abs_err": 0.0})
+        del want, got
+    log("[fabric] copy_loop (2, 4 streams) and remote_loop equal their plain "
+        "loops after 3 iterations")
+    iters = bench_kw["iters"]
+    timed = {"copy_loop": (bench["detail"]["copy_loop_streams"], iters,
+                           bench["detail"]["copy_loop_gbps"]),
+             "remote_loop": (2, iters // 2, bench["detail"]["remote_loop_gbps"])}
+    rows = {"onesided_copy": k4}
+    for name, (streams, n_it, gbps) in timed.items():
+        traffic = 2 * nbytes * n_it
+        rec = {"nbytes": nbytes, "iters": n_it, "streams": streams,
+               "max_abs_err": 0.0, "bound_ms": traffic / rate * 1e3,
+               "library_ms": None}
+        if timing:
+            rec["ms"] = traffic / (gbps * 1e9) * 1e3
+            rec["plain_ms"] = event_ms(lambda s=streams, k=n_it: copy_loops.copy_loop_plain(
+                buf, nbytes, k, s), 1, warmup=1)
+        rows[name] = [rec] + loops[name]
+    del buf
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"rows": rows, "bench": bench, "launches_handles": handle_launches,
+            "launches_copy_bench": bench_launches}
+
+
 # -- main -------------------------------------------------------------------
 
 
-def main() -> int:
+def across_cards() -> int:
+    """``python3 chip_smoke.py --across-cards``: phase 6's one-sided copies
+    and handle path with the 4 rows on 4 cards (cuda:0..3, or the cards
+    there are, in turn), so every cross-row copy is a send storing into
+    another card's memory over NVLink. Needs two or more cards."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("chip_smoke --across-cards: needs two or more cards",
+              file=sys.stderr)
+        return 1
+    card = phase_device()
+    phase_build()
+    mesh = [torch.device("cuda", i % count) for i in range(4)]
+    fab = phase_fabric(
+        mesh[0], row_bytes=2 * GiB - BLOCK,
+        sizes=(4 * KiB, 1 * MiB, 16 * MiB, 64 * MiB, 512 * MiB, 1 * GiB),
+        rate=card["hbm_rate"], handle_sizes=(4 * KiB, 16 * MiB, 256 * MiB),
+        ring_bytes=64 * MiB, bench_kw={}, mesh=mesh, with_bench=False,
+    )
+    print(json.dumps({"onesided_copy_across_cards": fab["rows"]["onesided_copy"],
+                      "launches": fab["launches_handles"]}))
+    print(card["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": count}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    if argv == ["--across-cards"]:
+        return across_cards()
+    if argv:
+        print("usage: python3 chip_smoke.py [--across-cards]", file=sys.stderr)
+        return 2
     from oncilla_tpu_torch.models import llama
     from oncilla_tpu_torch.models.kv_paging import page_bytes
     from oncilla_tpu_torch.ops import dma
@@ -530,7 +844,7 @@ def main() -> int:
     loop_launches = dma.launches()
     log(f"[ocm_test] launches: {loop_launches}; phase "
         f"{time.perf_counter() - t:.3f} s")
-    if not all(loop_launches.values()):
+    if not all(loop_launches[k] for k in _DMA_KERNELS):
         raise AssertionError(f"a kernel was not launched by the ocm_test "
                              f"loop: {loop_launches}")
 
@@ -541,29 +855,52 @@ def main() -> int:
     )
     log(f"[serving] phase {time.perf_counter() - t:.3f} s")
 
+    t = time.perf_counter()
+    fab = phase_fabric(
+        device, row_bytes=2 * GiB - BLOCK,
+        sizes=(4 * KiB, 1 * MiB, page, 64 * MiB, 512 * MiB, 1 * GiB),
+        rate=card["hbm_rate"],
+        handle_sizes=(4 * KiB, page, 256 * MiB), ring_bytes=64 * MiB,
+        bench_kw={"arena_bytes": 256 * MiB, "nbytes": 64 * MiB, "iters": 2000},
+    )
+    log(f"[fabric] phase {time.perf_counter() - t:.3f} s")
+
+    main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
+                 "fabric_handles": fab["launches_handles"],
+                 "copy_bench": fab["launches_copy_bench"]}
+    rows_by_kernel = {**kern, **fab["rows"]}
     line = []
-    for name, rows in kern.items():
-        at = next(r for r in rows if r["nbytes"] == page)
+    for name, rows in rows_by_kernel.items():
+        # K1-K4 are reported at one KV page across rows; K9/K10 at their
+        # timed run of copy_bench.
+        timed = [r for r in rows if "bound_ms" in r]
+        at = next((r for r in timed if r["nbytes"] == page
+                   and r.get("case", "cross_row") == "cross_row"), timed[0])
         line.append({
-            "name": name, "route": "cuda",
-            "source": "oncilla_tpu_torch/csrc/dma.cu",
+            "name": name, "route": "cuda", "source": _SOURCE[name],
             "replaces": _REPLACES[name],
-            "launches": loop_launches[name] + serving["launches"][name],
-            "launches_ocm_test": loop_launches[name],
-            "launches_serving": serving["launches"][name],
+            "launches": sum(c[name] for c in main_path.values()),
+            **{f"launches_{p}": c[name] for p, c in main_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": "bytes",
-            "library_ms": at["library_ms"], "nbytes": page,
-            "sizes": [{k: r[k] for k in ("nbytes", "ms", "plain_ms",
-                                         "library_ms", "bound_ms")}
-                      for r in rows],
+            "library_ms": at["library_ms"], "nbytes": at["nbytes"],
+            "sizes": [{k: r.get(k) for k in ("case", "nbytes", "iters", "ms",
+                                             "plain_ms", "library_ms", "bound_ms")
+                       if k in r} for r in timed],
         })
+    missing = [e["name"] for e in line if e["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {missing}")
+    detail = fab["bench"]["detail"]
     summary = {
         "card": card["smi"], "build_s": build_s,
         "alloc_p50_us": loop["alloc_p50_us"], "tok_s": serving["tok_s"],
         "profile": serving["profile"],
         "requests": serving["requests"],
+        "copy_bench": {k: detail[k] for k in (
+            "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",
+            "plain_loop_gbps", "alloc_p50_us", "free_p50_us")},
         "seconds": time.perf_counter() - t_all,
     }
     log("[summary] " + json.dumps(summary))

@@ -8,7 +8,11 @@ and without that request they raise ``OcmDeviceError``.
 Served so far: the single-node data plane (``ocm_init`` -> ``alloc`` ->
 ``put``/``get`` -> ``copy`` -> ``free`` on LOCAL_HOST and LOCAL_DEVICE
 handles) with hand-written CUDA copy kernels for aligned transfers
-(:mod:`oncilla_tpu_torch.ops.dma`), and Llama paged-KV decode over it
+(:mod:`oncilla_tpu_torch.ops.dma`); the one-sided device fabric
+(:mod:`oncilla_tpu_torch.ops.ici`, :mod:`oncilla_tpu_torch.parallel`, the
+kernel in :mod:`oncilla_tpu_torch.ops.fabric`) behind REMOTE_DEVICE handles
+of ``Ocm(remote=...)``; bench.py's copy legs
+(:mod:`oncilla_tpu_torch.benchmarks.copy_bench`); and Llama paged-KV decode
 (:mod:`oncilla_tpu_torch.models`). Public API mirrors inc/oncillamem.h:69-89
 of the reference.
 """
@@ -16,6 +20,7 @@ of the reference.
 from oncilla_tpu_torch.core.arena import ArenaAllocator, Extent
 from oncilla_tpu_torch.core.context import (
     Ocm,
+    RemoteBackend,
     ocm_alloc,
     ocm_alloc_kind,
     ocm_copy,
@@ -57,6 +62,7 @@ __all__ = [
     "OcmInvalidHandle",
     "OcmKind",
     "OcmOutOfMemory",
+    "RemoteBackend",
     "ocm_alloc",
     "ocm_alloc_kind",
     "ocm_copy",

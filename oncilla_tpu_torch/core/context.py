@@ -5,8 +5,11 @@ Analogue of libocm (reference src/lib.c + inc/oncillamem.h) and of
 :class:`Ocm`; handles are :class:`OcmAlloc`; ``copy`` composes the
 kind x kind matrix with a same-device fast path. LOCAL_HOST lives in a host
 arena (pinned when the device is CUDA), LOCAL_DEVICE in the device arena.
-Remote arms need a control plane, which this package does not have yet:
-they raise ``OcmConnectError``, as the JAX package does in single-node mode.
+Remote arms go to the :class:`RemoteBackend` the context was given (the
+daemon client, or a stand-in that books extents itself); without one they
+raise ``OcmConnectError``, as the JAX package does in single-node mode. A
+copy between two REMOTE_DEVICE handles rides the backend's ``ici_plane``
+(the one-sided fabric) when it has one, never the host.
 
 Device arms take and return torch tensors on the context's device; host
 arms return CPU tensors.
@@ -17,6 +20,7 @@ from __future__ import annotations
 import itertools
 import math
 import threading
+from typing import Protocol
 
 import torch
 
@@ -32,13 +36,29 @@ from oncilla_tpu_torch.utils.platform import resolve_device
 _LOCAL_KINDS = (OcmKind.LOCAL_HOST, OcmKind.LOCAL_DEVICE)
 
 
+class RemoteBackend(Protocol):
+    """What serves the remote arms. One-sided semantics: after ``alloc``
+    returns, ``put``/``get`` involve no remote application code (the
+    reference's data plane bypasses the daemon per transfer). A backend
+    whose handles live on a device fabric also carries it as
+    ``ici_plane``."""
+
+    def alloc(self, nbytes: int, kind: OcmKind) -> OcmAlloc: ...
+    def free(self, handle: OcmAlloc) -> None: ...
+    def put(self, handle: OcmAlloc, data, offset: int) -> None: ...
+    def get(self, handle: OcmAlloc, nbytes: int, offset: int): ...
+
+
 class Ocm:
     """Per-process oncilla context (``ocm_init``/``ocm_tini``,
     reference src/lib.c:98,160). ``device`` is a CUDA device by
-    default; ``device="cpu"`` runs the device arm on the CPU."""
+    default; ``device="cpu"`` runs the device arm on the CPU. ``remote``
+    serves the remote kinds."""
 
-    def __init__(self, config: OcmConfig | None = None, device=None):
+    def __init__(self, config: OcmConfig | None = None,
+                 remote: RemoteBackend | None = None, device=None):
         self.config = config or OcmConfig()
+        self._remote = remote
         if self.config.nodefile or self.config.rank is not None:
             raise OcmConnectError(
                 "a nodefile/rank names a control plane, which this package "
@@ -89,26 +109,28 @@ class Ocm:
             )
         return self.device_arenas[device_index]
 
-    @staticmethod
-    def _remote_or_raise(kind):
-        raise OcmConnectError(
-            f"kind {kind} needs a control plane; this context has none "
-            "(single-node mode)"
-        )
+    def _remote_or_raise(self, kind) -> RemoteBackend:
+        if self._remote is None:
+            raise OcmConnectError(
+                f"kind {kind} needs a control plane; this context has none "
+                "(single-node mode)"
+            )
+        return self._remote
 
     def alloc(self, nbytes: int, kind: OcmKind = OcmKind.LOCAL_HOST,
               device_index: int = 0) -> OcmAlloc:
         """``ocm_alloc`` (reference src/lib.c:175)."""
         with self.tracer.span("alloc"):
-            if kind not in _LOCAL_KINDS:
-                self._remote_or_raise(kind)
-            di = 0 if kind == OcmKind.LOCAL_HOST else device_index
-            ext = self._local_arena(kind, di).alloc(nbytes)
-            h = OcmAlloc(
-                alloc_id=next(self._next_id), kind=kind, fabric=Fabric.LOCAL,
-                nbytes=nbytes, rank=0, device_index=di, extent=ext,
-                origin_rank=0,
-            )
+            if kind in _LOCAL_KINDS:
+                di = 0 if kind == OcmKind.LOCAL_HOST else device_index
+                ext = self._local_arena(kind, di).alloc(nbytes)
+                h = OcmAlloc(
+                    alloc_id=next(self._next_id), kind=kind,
+                    fabric=Fabric.LOCAL, nbytes=nbytes, rank=0,
+                    device_index=di, extent=ext, origin_rank=0,
+                )
+            else:
+                h = self._remote_or_raise(kind).alloc(nbytes, kind)
             with self._lock:
                 self._allocs[h.alloc_id] = h
             printd("alloc id=%d kind=%s nbytes=%d", h.alloc_id, kind, nbytes)
@@ -122,7 +144,11 @@ class Ocm:
             if handle.freed or handle.alloc_id not in self._allocs:
                 raise OcmInvalidHandle(f"double free of alloc {handle.alloc_id}")
             del self._allocs[handle.alloc_id]
-        self._local_arena(handle.kind, handle.device_index).free(handle.extent)
+        if handle.kind in _LOCAL_KINDS:
+            self._local_arena(handle.kind, handle.device_index).free(
+                handle.extent)
+        else:
+            self._remote_or_raise(handle.kind).free(handle)
         handle.freed = True
 
     # -- one-sided ops ---------------------------------------------------
@@ -130,17 +156,18 @@ class Ocm:
     def _check_live(self, handle: OcmAlloc) -> None:
         if handle.freed:
             raise OcmInvalidHandle(f"use of freed alloc {handle.alloc_id}")
-        if handle.kind not in _LOCAL_KINDS:
-            self._remote_or_raise(handle.kind)
 
     def put(self, handle: OcmAlloc, data, offset: int = 0) -> None:
         """One-sided write (``ocm_copy_onesided`` op_flag=1, lib.c:670)."""
         self._check_live(handle)
         raw = as_byte_tensor(data)
         with self.tracer.span("put", nbytes=raw.numel()):
-            self._local_arena(handle.kind, handle.device_index).write(
-                handle.extent, raw, offset
-            )
+            if handle.kind in _LOCAL_KINDS:
+                self._local_arena(handle.kind, handle.device_index).write(
+                    handle.extent, raw, offset
+                )
+            else:
+                self._remote_or_raise(handle.kind).put(handle, raw, offset)
 
     def get(self, handle: OcmAlloc, nbytes: int | None = None, offset: int = 0,
             out: torch.Tensor | None = None) -> torch.Tensor:
@@ -158,6 +185,13 @@ class Ocm:
         elif nbytes is None:
             nbytes = handle.nbytes - offset
         with self.tracer.span("get", nbytes=nbytes):
+            if handle.kind not in _LOCAL_KINDS:
+                got = self._remote_or_raise(handle.kind).get(
+                    handle, nbytes, offset)
+                if out is None:
+                    return got
+                dst.copy_(got)
+                return out
             arena = self._local_arena(handle.kind, handle.device_index)
             if out is None:
                 return arena.read(handle.extent, nbytes, offset)
@@ -175,8 +209,14 @@ class Ocm:
 
     def localbuf(self, handle: OcmAlloc) -> torch.Tensor:
         """``ocm_localbuf`` (reference src/lib.c:425-460): a zero-copy
-        view for LOCAL_HOST, a materialised copy for LOCAL_DEVICE."""
+        view for LOCAL_HOST, a materialised copy for LOCAL_DEVICE. Remote
+        kinds' staging windows are not ported."""
         self._check_live(handle)
+        if handle.kind not in _LOCAL_KINDS:
+            self._remote_or_raise(handle.kind)
+            raise OcmInvalidHandle(
+                f"ocm_localbuf of a {handle.kind} handle: staging windows "
+                "are not ported; use get")
         if handle.kind == OcmKind.LOCAL_HOST:
             return self.host_arena.view(handle.extent)
         return self.device_arenas[handle.device_index].read(
@@ -188,7 +228,10 @@ class Ocm:
     def copy(self, dst: OcmAlloc, src: OcmAlloc, nbytes: int | None = None,
              dst_offset: int = 0, src_offset: int = 0) -> None:
         """``ocm_copy`` (reference src/lib.c:502-665): every pair
-        composes get -> put, with a same-device fast path."""
+        composes get -> put, with a same-device fast path, and
+        REMOTE_DEVICE -> REMOTE_DEVICE on the backend's ``ici_plane``
+        (the RDMA x RDMA arm going straight to ``ib_write``,
+        lib.c:670-700)."""
         self._check_live(dst)
         self._check_live(src)
         if nbytes is None:
@@ -203,6 +246,15 @@ class Ocm:
                     src.extent, dst.extent, nbytes, src_offset, dst_offset
                 )
                 return
+            if (
+                src.kind == OcmKind.REMOTE_DEVICE
+                and dst.kind == OcmKind.REMOTE_DEVICE
+                and self._remote is not None
+            ):
+                plane = getattr(self._remote, "ici_plane", None)
+                if plane is not None:
+                    plane.copy(dst, src, nbytes, dst_offset, src_offset)
+                    return
             data = self.get(src, nbytes, src_offset)
             self.put(dst, data, dst_offset)
 
@@ -230,7 +282,8 @@ class Ocm:
 def ocm_init(config: OcmConfig | None = None, device=None) -> Ocm:
     """``ocm_init`` (reference src/lib.c:98-132). Runs on CUDA unless
     ``device="cpu"``; raises ``OcmDeviceError`` when CUDA is absent and no
-    CPU was asked for."""
+    CPU was asked for. It has no wire client yet, so it serves the local
+    kinds only (``Ocm(config, remote=...)`` takes a backend directly)."""
     return Ocm(config=config, device=device)
 
 

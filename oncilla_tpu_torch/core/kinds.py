@@ -5,8 +5,11 @@ reference inc/oncillamem.h:26-35), on a GPU host:
   context's device is CUDA).
 - ``LOCAL_DEVICE``  — HBM of a GPU attached to this host (reference
   ``OCM_LOCAL_GPU``).
-- ``REMOTE_DEVICE`` — HBM of another GPU (NVLink peer), not served yet.
-- ``REMOTE_HOST``   — DRAM of another host, not served yet.
+- ``REMOTE_DEVICE`` — HBM of another GPU (an NVLink peer, or another row of
+  the device fabric), served through a ``RemoteBackend`` and its
+  ``ici_plane`` (``ops/ici.py``).
+- ``REMOTE_HOST``   — DRAM of another host; needs the daemon's wire client,
+  which the port does not have yet.
 """
 
 from __future__ import annotations

@@ -19,69 +19,17 @@
 // loads in flight per thread before their stores, byte offsets in int64
 // (arenas exceed 2 GiB), and a grid of 8 CTAs of 256 threads per SM (capped
 // by the work) so all 132 SMs keep enough requests outstanding to saturate
-// HBM. All three entry points share the one device function; the caller
-// guarantees 16-byte aligned pointers and a size that is a multiple of 16
-// (offsets and sizes are 4096-byte aligned). TMA / cp.async.bulk designs
-// are left for a later change.
+// HBM. All three entry points share the one kernel (copy.cuh, which the
+// fabric's local fast path uses too); the caller guarantees 16-byte aligned
+// pointers and a size that is a multiple of 16 (offsets and sizes are
+// 4096-byte aligned). TMA / cp.async.bulk designs are left for a later
+// change.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream (PyTorch's current stream), does not synchronise, and
 // returns cudaGetLastError() so the caller raises on a refused launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kCtasPerSm = 8;
-
-__global__ void __launch_bounds__(kThreads)
-copy_u4(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (; i + 3 * stride < n; i += 4 * stride) {
-    uint4 a = src[i];
-    uint4 b = src[i + stride];
-    uint4 c = src[i + 2 * stride];
-    uint4 d = src[i + 3 * stride];
-    dst[i] = a;
-    dst[i + stride] = b;
-    dst[i + 2 * stride] = c;
-    dst[i + 3 * stride] = d;
-  }
-  for (; i < n; i += stride) dst[i] = src[i];
-}
-
-int sm_count(int device) {
-  static int cache[64] = {0};
-  if (device < 0 || device >= 64) return 132;
-  if (cache[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-            cudaSuccess || n <= 0) {
-      n = 132;
-    }
-    cache[device] = n;
-  }
-  return cache[device];
-}
-
-int launch_copy(int device, const void* src, void* dst, long long nbytes,
-                cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long n16 = nbytes / 16;
-  if (n16 <= 0) return (int)cudaSuccess;
-  long long want = (n16 + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count(device) * kCtasPerSm;
-  const int grid = (int)(want < cap ? want : cap);
-  copy_u4<<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst), n16);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "copy.cuh"
 
 extern "C" {
 

@@ -18,10 +18,13 @@ raises if the kernel cannot be built or refuses the launch. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (a plain int, reset
 with :func:`reset_launches`); plain-version calls are not counted.
 
-The kernels are built from ``csrc/dma.cu`` at first use with ``nvcc`` into
-``build/oncilla_tpu_torch/`` beside the package (a plain C interface loaded
-with ``ctypes``), so a checkout needs nothing prebuilt. What bounds them
-and how they are designed is noted in the CUDA source.
+This module also builds the port's kernels: every source under ``csrc/``
+is compiled at first use with ``nvcc`` into ``build/oncilla_tpu_torch/``
+beside the package, one library with a plain C interface per source, loaded
+with ``ctypes`` (:func:`library`), so a checkout needs nothing prebuilt. The
+launch counters of every kernel of the port are read and reset here
+(:func:`launches`, :func:`reset_launches`). What bounds each kernel and how
+it is designed is noted in its CUDA source.
 """
 
 from __future__ import annotations
@@ -41,14 +44,15 @@ BLOCK = 4096  # bytes per addressable block (one (32, 128) uint8 TPU tile)
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-_SOURCES = ("dma.cu",)
+_SOURCES = tuple(sorted(p.name for p in _CSRC.glob("*.cu")))
+_HEADERS = tuple(sorted(p.name for p in _CSRC.glob("*.cuh")))
 _BUILD_DIR = _PKG.parent / "build" / "oncilla_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 BUILD_LOG: dict[str, str] = {}
 
@@ -76,7 +80,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode())
+    """The library of one source, named by a hash of the source, the shared
+    headers it may include and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for h in _HEADERS:
+        digest.update((_CSRC / h).read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
     return _BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
 
 
@@ -111,25 +120,42 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def _load():
-    global _lib
+VP, LL, CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, building every source first
+    if any is out of date. ``signatures`` maps each entry point to its
+    ``argtypes``; every entry point returns a CUDA error code (int), and
+    each library has ``ocm_error_string``."""
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get(source)
+        if lib is None:
             build()
-            lib = ctypes.CDLL(str(_target(_CSRC / "dma.cu")))
-            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.ocm_write_rows.argtypes = [ci, vp, vp, ll, ll, vp]
-            lib.ocm_read_rows.argtypes = [ci, vp, vp, ll, ll, vp]
-            lib.ocm_local_copy.argtypes = [ci, vp, ll, ll, ll, vp]
-            for fn in (lib.ocm_write_rows, lib.ocm_read_rows, lib.ocm_local_copy):
-                fn.restype = ci
-            lib.ocm_error_string.argtypes = [ci]
+            lib = ctypes.CDLL(str(_target(_CSRC / source)))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = CI
+            lib.ocm_error_string.argtypes = [CI]
             lib.ocm_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[source] = lib
+        return lib
 
 
-def _check(lib, err: int, what: str) -> None:
+_SIGNATURES = {
+    "ocm_write_rows": [CI, VP, VP, LL, LL, VP],
+    "ocm_read_rows": [CI, VP, VP, LL, LL, VP],
+    "ocm_local_copy": [CI, VP, LL, LL, LL, VP],
+}
+
+
+def _load() -> ctypes.CDLL:
+    return library("dma.cu", _SIGNATURES)
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
     if err != 0:
         msg = lib.ocm_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
@@ -138,14 +164,14 @@ def _check(lib, err: int, what: str) -> None:
 # -- argument checks shared by the kernel and its plain version -------------
 
 
-def _flat_arena(buf: torch.Tensor) -> torch.Tensor:
+def flat_arena(buf: torch.Tensor) -> torch.Tensor:
     if buf.dtype != torch.uint8 or not buf.is_contiguous():
         raise ValueError("arena must be a contiguous uint8 tensor")
     assert buf.numel() % BLOCK == 0, "arena must be BLOCK-aligned"
     return buf.view(-1)
 
 
-def _route(t: torch.Tensor) -> bool:
+def route(t: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensor); False: plain version (CPU)."""
     if t.device.type == "cuda":
         return True
@@ -154,13 +180,13 @@ def _route(t: torch.Tensor) -> bool:
     raise ValueError(f"no copy kernel for device {t.device}")
 
 
-def _ptr16(*ts: torch.Tensor) -> None:
+def ptr16(*ts: torch.Tensor) -> None:
     for t in ts:
         if t.data_ptr() % 16:
             raise ValueError("copy kernels need 16-byte aligned tensors")
 
 
-def _stream(t: torch.Tensor) -> int:
+def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -176,7 +202,7 @@ def write_rows_plain(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.
 def write_rows(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor:
     """One-sided put of flat uint8 ``raw`` (BLOCK-multiple size) into the
     arena at byte offset ``start``, in place; returns ``buf``."""
-    flat = _flat_arena(buf)
+    flat = flat_arena(buf)
     nbytes = raw.numel()
     assert start % BLOCK == 0 and nbytes % BLOCK == 0 and nbytes > 0
     assert start + nbytes <= flat.numel(), "write past the arena's end"
@@ -184,13 +210,13 @@ def write_rows(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor
         raise ValueError("rows must be a contiguous uint8 tensor")
     if raw.device != buf.device:
         raise ValueError(f"rows on {raw.device}, arena on {buf.device}")
-    if not _route(buf):
+    if not route(buf):
         return write_rows_plain(buf, raw, start)
-    _ptr16(flat, raw)
+    ptr16(flat, raw)
     lib = _load()
-    _check(lib, lib.ocm_write_rows(
+    check(lib, lib.ocm_write_rows(
         buf.device.index, flat.data_ptr(), raw.data_ptr(), start, nbytes,
-        _stream(buf)), "write_rows")
+        stream_of(buf)), "write_rows")
     write_rows.launches += 1
     return buf
 
@@ -208,17 +234,17 @@ def read_rows_plain(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
 def read_rows(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
     """One-sided get of a BLOCK-aligned extent as a fresh flat uint8 tensor
     on the arena's device."""
-    flat = _flat_arena(buf)
+    flat = flat_arena(buf)
     assert start % BLOCK == 0 and nbytes % BLOCK == 0 and nbytes > 0
     assert start + nbytes <= flat.numel(), "read past the arena's end"
-    if not _route(buf):
+    if not route(buf):
         return read_rows_plain(buf, start, nbytes)
     out = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
-    _ptr16(flat, out)
+    ptr16(flat, out)
     lib = _load()
-    _check(lib, lib.ocm_read_rows(
+    check(lib, lib.ocm_read_rows(
         buf.device.index, flat.data_ptr(), out.data_ptr(), start, nbytes,
-        _stream(buf)), "read_rows")
+        stream_of(buf)), "read_rows")
     read_rows.launches += 1
     return out
 
@@ -241,33 +267,39 @@ def local_copy(buf: torch.Tensor, src_off: int, dst_off: int,
     """In-place copy of arena bytes [src_off, +nbytes) to [dst_off, +nbytes)
     on one device. Offsets and size BLOCK-aligned; the ranges must not
     overlap. Returns ``buf``."""
-    flat = _flat_arena(buf)
+    flat = flat_arena(buf)
     assert pallas_supported(int(src_off), int(dst_off), nbytes)
     assert (
         int(src_off) + nbytes <= int(dst_off)
         or int(dst_off) + nbytes <= int(src_off)
     ), "overlapping ranges are unsafe for a raw copy; use DeviceArena.move"
     assert max(src_off, dst_off) + nbytes <= flat.numel(), "copy past the arena's end"
-    if not _route(buf):
+    if not route(buf):
         return local_copy_plain(buf, src_off, dst_off, nbytes)
-    _ptr16(flat)
+    ptr16(flat)
     lib = _load()
-    _check(lib, lib.ocm_local_copy(
+    check(lib, lib.ocm_local_copy(
         buf.device.index, flat.data_ptr(), src_off, dst_off, nbytes,
-        _stream(buf)), "local_copy")
+        stream_of(buf)), "local_copy")
     local_copy.launches += 1
     return buf
 
 
 local_copy.launches = 0
 
-KERNELS = (write_rows, read_rows, local_copy)
+def kernels() -> tuple:
+    """The wrapper of every kernel of the port, each with its ``launches``
+    count: K1-K3 here, K4 in :mod:`.fabric`, K9/K10 in :mod:`.copy_loops`."""
+    from oncilla_tpu_torch.ops import copy_loops, fabric
+
+    return (write_rows, read_rows, local_copy, fabric.onesided_copy,
+            copy_loops.copy_loop, copy_loops.remote_loop)
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in kernels():
         k.launches = 0
 
 
 def launches() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {k.__name__: k.launches for k in kernels()}

@@ -1,5 +1,5 @@
 """Configuration: the subset of ``oncilla_tpu.utils.config.OcmConfig`` that
-the single-node data plane reads, with the same env-var overrides.
+the port's data planes read, with the same env-var overrides.
 
 The control-plane fields (``nodefile``, ``rank``) are kept so a caller who
 sets them hears about it: this package has no daemon client yet, so
@@ -33,3 +33,21 @@ class OcmConfig:
         default_factory=lambda: os.environ.get("OCM_NODEFILE")
     )
     rank: int | None = None
+
+    # Chunked chip-to-chip copies (``ops.ici.IciDataPlane.copy``): chunk
+    # size, and how many staged chunks may exist at once (the reference's
+    # 2-posted-commands limit, extoll.c:44-51). The JAX package's values.
+    chunk_bytes: int = field(
+        default_factory=lambda: _env_int("OCM_CHUNK_BYTES", 16 << 20)
+    )
+    inflight_ops: int = field(default_factory=lambda: _env_int("OCM_INFLIGHT", 2))
+
+    def __post_init__(self) -> None:
+        # A 0-byte chunk never advances a chunked copy, and a window of 0
+        # never issues one.
+        if self.chunk_bytes <= 0:
+            raise ValueError(f"chunk_bytes must be > 0 (got {self.chunk_bytes})")
+        if self.inflight_ops <= 0:
+            raise ValueError(
+                f"inflight_ops must be > 0 (got {self.inflight_ops})"
+            )

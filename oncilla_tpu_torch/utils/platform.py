@@ -5,6 +5,9 @@ here. ``None`` means the first CUDA device; on a machine without CUDA that
 raises :class:`OcmDeviceError` — it never falls back to the CPU, which would
 hide the device a measurement claims to run on. The CPU is used only when
 asked for by name (``device="cpu"``), as the tests do.
+
+:func:`hbm_rate` is the card's datasheet memory rate, the yardstick of
+every copy's bound.
 """
 
 from __future__ import annotations
@@ -26,3 +29,21 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise OcmDeviceError(f"unsupported device {dev}")
     return dev
+
+
+# Datasheet HBM rates (bytes/s), most specific name first.
+_HBM_RATE = (
+    ("H200", 4.8e12),
+    ("H100 NVL", 3.9e12),
+    ("H100 PCIe", 2.0e12),
+    ("H100", 3.35e12),  # H100 SXM5 80GB HBM3
+)
+
+
+def hbm_rate(name: str) -> float:
+    """Datasheet memory rate (bytes/s) of the card ``name``
+    (``torch.cuda.get_device_name``)."""
+    for key, rate in _HBM_RATE:
+        if key in name:
+            return rate
+    raise OcmDeviceError(f"no datasheet HBM rate for card {name!r}")

@@ -68,7 +68,9 @@ def test_cpu_calls_are_not_counted_as_launches(rng):
     dma.write_rows(buf, torch.from_numpy(_bytes(rng, BLOCK)), 0)
     dma.read_rows(buf, 0, BLOCK)
     dma.local_copy(buf, 0, BLOCK, BLOCK)
-    assert dma.launches() == {"write_rows": 0, "read_rows": 0, "local_copy": 0}
+    assert dma.launches() == {"write_rows": 0, "read_rows": 0, "local_copy": 0,
+                              "onesided_copy": 0, "copy_loop": 0,
+                              "remote_loop": 0}
 
 
 def test_contract_asserts(rng):
@@ -118,3 +120,14 @@ def test_build_targets_hopper():
     target = dma._target(dma._CSRC / "dma.cu")
     assert target.parent == dma._BUILD_DIR and target.suffix == ".so"
     assert dma._BUILD_DIR.parts[-2:] == ("build", "oncilla_tpu_torch")
+
+
+def test_build_covers_every_source(monkeypatch):
+    """One library per source under csrc/, each named by a hash that also
+    covers the shared header, so editing copy.cuh rebuilds them all."""
+    assert dma._SOURCES == ("copy_loops.cu", "dma.cu", "fabric.cu")
+    assert dma._HEADERS == ("copy.cuh",)
+    targets = {dma._target(dma._CSRC / s) for s in dma._SOURCES}
+    assert len(targets) == 3
+    monkeypatch.setattr(dma, "_HEADERS", ())
+    assert dma._target(dma._CSRC / "dma.cu") not in targets
