@@ -38,6 +38,16 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    ``ring_shift`` both ways; then ``copy_bench`` at ``bench.py``'s sizes
    (its JSON line; its segment checks must pass), and the copy loops K9
    and K10 against their plain loops at 3 iterations.
+7. bench — ``bench.py``'s measurement path at the JAX ceiling probes' sizes:
+   the read stream K6 over 256 MiB (the buffer unchanged, the sum of the
+   bytes it landed equal to the buffer's), the copy streams K7 at 1/2/4/8
+   streams and the staged copy K8 at 2 and 3 iterations on 128 MiB, byte
+   for byte against their plain versions; then ``ceiling_probe()`` at its
+   defaults and the port's ``benchmarks/bench.run`` (copy legs, ceiling,
+   gb_sweep over a 2 GiB + 256 MiB arena up to 1 GiB with the amortized
+   leg, kv_decode), their JSON lines and the grader's rows
+   (``benchmarks/check``); every ceiling leg must be measured and rows 1-3
+   must not read NO DATA.
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -45,7 +55,9 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --across-cards`` (two or more cards) runs phases 1-2
 and phase 6's one-sided copies and handle path with the 4 rows on
 different cards: the fabric's cross-card form, peer-mapped stores over
-NVLink.
+NVLink; then ``spmd_ring_sweep`` over those rows (every row sending to the
+next card at once, 1 MiB .. 256 MiB) beside every card's ``nvidia-smi``
+line.
 """
 
 from __future__ import annotations
@@ -74,6 +86,9 @@ _REPLACES = {
     "onesided_copy": "oncilla_tpu/ops/pallas_ici.py:145",
     "copy_loop": "bench.py:150",
     "remote_loop": "bench.py:223",
+    "read_stream": "oncilla_tpu/benchmarks/ceiling.py:91",
+    "copy_stream_loop": "oncilla_tpu/benchmarks/ceiling.py:175",
+    "vmem_roundtrip": "oncilla_tpu/benchmarks/ceiling.py:259",
 }
 _SOURCE = {
     "write_rows": "oncilla_tpu_torch/csrc/dma.cu",
@@ -82,7 +97,16 @@ _SOURCE = {
     "onesided_copy": "oncilla_tpu_torch/csrc/fabric.cu",
     "copy_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
     "remote_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
+    "read_stream": "oncilla_tpu_torch/csrc/ceiling.cu",
+    "copy_stream_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
+    "vmem_roundtrip": "oncilla_tpu_torch/csrc/ceiling.cu",
 }
+
+# The ceiling probes' sizes: the JAX probes' defaults (ceiling.py:112-295).
+CEIL_READ = {"total_bytes": 256 * MiB, "chunk_bytes": 2 * MiB, "iters": 600}
+CEIL_COPY = {"total_bytes": 128 * MiB, "nbytes": 64 * MiB, "iters": 2000}
+CEIL_TRIP = {"total_bytes": 128 * MiB, "nbytes": 64 * MiB, "iters": 400,
+             "chunk_bytes": 2 * MiB}
 _DMA_KERNELS = ("write_rows", "read_rows", "local_copy")
 
 # NVLink between two H100 SXM cards, each way (datasheet): the bound of a
@@ -149,7 +173,7 @@ def phase_device() -> dict:
         log(f"[device] nvidia-smi: {line}" + (f" (card {i})" if len(cards) > 1 else ""))
     log(f"[device] torch: {name}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, count {torch.cuda.device_count()}")
-    return {"smi": smi, "name": name, "hbm_rate": hbm_rate(name)}
+    return {"smi": smi, "cards": cards, "name": name, "hbm_rate": hbm_rate(name)}
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -775,6 +799,134 @@ def phase_fabric(device, row_bytes: int, sizes, rate: float,
             "launches_copy_bench": bench_launches}
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+
+def _random_bytes(n: int, device, gen) -> torch.Tensor:
+    return torch.empty(n, dtype=torch.uint8, device=device).random_(0, 256, generator=gen)
+
+
+def phase_bench(device, rate: float, read_kw: dict, copy_kw: dict, trip_kw: dict,
+                bench_kw: dict, gb_max: int, timing: bool = True,
+                check_launches: bool = True) -> dict:
+    """bench.py's measurement path: K6-K8 against their plain versions at the
+    ceiling probes' sizes, then the main path — ``ceiling_probe`` and the
+    port bench's ``run`` — graded by the port's ``check``; every ceiling
+    leg must be measured, and the gb_sweep must hold ``gb_max`` with its
+    amortized leg."""
+    from oncilla_tpu_torch.benchmarks import bench, ceiling, check
+    from oncilla_tpu_torch.ops import ceiling_loops as cl
+    from oncilla_tpu_torch.ops import dma
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(4)
+    t0 = time.perf_counter()
+
+    # 1. K6: the buffer unchanged, the sum of the landed bytes the buffer's.
+    chunk = read_kw["chunk_bytes"]
+    rbuf = _random_bytes(read_kw["total_bytes"], device, gen)
+    before = rbuf.clone()
+    got = cl.read_stream(rbuf, chunk, 3)
+    want = cl.read_stream_plain(rbuf, chunk, 1)
+    if not torch.equal(rbuf, before):
+        raise AssertionError("read_stream changed the buffer it reads")
+    if int(got) != int(want):
+        raise AssertionError(f"read_stream summed {int(got)}, the buffer holds {int(want)}")
+    del before
+    checks = {"read_stream": [{"iters": 3, "max_abs_err": 0.0, "sum": int(got)}],
+              "copy_stream_loop": [], "vmem_roundtrip": []}
+
+    # 2. K7 at 1/2/4/8 streams, K8 at an even and an odd count.
+    nbytes = copy_kw["nbytes"]
+    cbuf = _random_bytes(copy_kw["total_bytes"], device, gen)
+    cases = [("copy_stream_loop", s, 3) for s in (1, 2, 4, 8)]
+    cases += [("vmem_roundtrip", 1, n) for n in (2, 3)]
+    for name, streams, n_it in cases:
+        want, got = cbuf.clone(), cbuf.clone()
+        if name == "copy_stream_loop":
+            cl.copy_stream_loop_plain(want, nbytes, n_it, streams)
+            cl.copy_stream_loop(got, nbytes, n_it, streams)
+        else:
+            cl.vmem_roundtrip_plain(want, trip_kw["nbytes"], n_it, trip_kw["chunk_bytes"])
+            cl.vmem_roundtrip(got, trip_kw["nbytes"], n_it, trip_kw["chunk_bytes"])
+        err = _byte_err(want, got, 0, want.numel())
+        if err:
+            raise AssertionError(f"{name} ({streams} streams, {n_it} iterations) "
+                                 f"differs from its plain version (max byte error {err})")
+        checks[name].append({"streams": streams, "iters": n_it, "max_abs_err": 0.0})
+        del want, got
+    log("[bench] read_stream (buffer unchanged, sum equal), copy_stream_loop at "
+        "1/2/4/8 streams and vmem_roundtrip at 2 and 3 iterations equal their "
+        "plain versions")
+
+    # 3. The main path: counts from 0 just before, read just after.
+    dma.reset_launches()
+    ceil = ceiling.ceiling_probe(device=device, timing=timing, read_kw=read_kw,
+                                 copy_kw=copy_kw, roundtrip_kw=trip_kw)
+    line = bench.run(device, timing=timing, **bench_kw)
+    if on_card:
+        torch.cuda.synchronize(device)
+    launches = dma.launches()
+    rows = check.grade(line)
+    log("[ceiling] " + json.dumps(ceil))
+    log("[bench] " + json.dumps(line))
+    for name, verdict, evidence in rows:
+        log(f"[check] {verdict:<8} {name}: {evidence}")
+    log(f"[bench] launches {launches}")
+    if not line["ok"]:
+        raise AssertionError(f"bench failed: {line['detail']['errors']}")
+    legs = [line["detail"]["ceiling"], ceil]
+    flat = [v for c in legs for v in (c["read_only_gbps"], c["vmem_roundtrip_gbps"],
+                                      *c["copy_streams_gbps"].values())]
+    if timing and not all(v is not None and v > 0 for v in flat):
+        raise AssertionError(f"a ceiling leg was not measured: {legs}")
+    point = line["detail"]["gb_sweep"].get(str(gb_max))
+    if point is None or (timing and point[2] is None):
+        raise AssertionError(f"gb_sweep lacks {gb_max} B with its amortized leg: "
+                             f"{line['detail']['gb_sweep']}")
+    if timing and any(v == "NO DATA" for _, v, _ in rows[:3]):
+        raise AssertionError(f"grader rows 1-3 read NO DATA: {rows[:3]}")
+    if check_launches and not all(launches.values()):
+        raise AssertionError(f"the bench did not launch every kernel: {launches}")
+
+    # 4. The kernels' rows: the probe's timed launch, beside its bound, its
+    # plain version and (K6) one torch.sum times the sweeps.
+    out = {}
+    streams = max((1, 2, 4, 8), key=lambda s: ceil["copy_streams_gbps"][str(s)] or 0.0)
+    timed = {
+        "read_stream": (read_kw["total_bytes"] * read_kw["iters"], ceil["read_only_gbps"],
+                        lambda: cl.read_stream_plain(rbuf, chunk, read_kw["iters"]),
+                        lambda: rbuf.sum(dtype=torch.int64), read_kw["iters"]),
+        "copy_stream_loop": (2 * nbytes * copy_kw["iters"],
+                             ceil["copy_streams_gbps"][str(streams)],
+                             lambda: cl.copy_stream_loop_plain(cbuf, nbytes, copy_kw["iters"],
+                                                               streams), None, 0),
+        "vmem_roundtrip": (2 * trip_kw["nbytes"] * trip_kw["iters"],
+                           ceil["vmem_roundtrip_gbps"],
+                           lambda: cl.vmem_roundtrip_plain(cbuf, trip_kw["nbytes"],
+                                                           trip_kw["iters"],
+                                                           trip_kw["chunk_bytes"]), None, 0),
+    }
+    for name, (traffic, gbps, plain, lib, lib_times) in timed.items():
+        rec = {"nbytes": traffic, "max_abs_err": 0.0, "bound_ms": traffic / rate * 1e3,
+               "library_ms": None}
+        if name == "copy_stream_loop":
+            rec["streams"] = streams
+        if timing:
+            rec["ms"] = traffic / (gbps * 1e9) * 1e3
+            rec["plain_ms"] = event_ms(plain, 1, warmup=1)
+            if lib is not None:
+                rec["library_ms"] = event_ms(lib, 10) * lib_times
+        out[name] = [rec, *checks[name]]
+        log(f"[bench] {name:16s} " + json.dumps(rec))
+    del rbuf, cbuf
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[bench] phase {time.perf_counter() - t0:.3f} s")
+    return {"rows": out, "ceiling": ceil, "bench": line, "grade": rows,
+            "launches": launches}
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -788,6 +940,8 @@ def across_cards() -> int:
         print("chip_smoke --across-cards: needs two or more cards",
               file=sys.stderr)
         return 1
+    from oncilla_tpu_torch.benchmarks import sweep
+
     card = phase_device()
     phase_build()
     mesh = [torch.device("cuda", i % count) for i in range(4)]
@@ -799,6 +953,12 @@ def across_cards() -> int:
     )
     print(json.dumps({"onesided_copy_across_cards": fab["rows"]["onesided_copy"],
                       "launches": fab["launches_handles"]}))
+    # The ring sweep with every row sending to the next card at once.
+    ring = sweep.spmd_ring_sweep(mesh, min_bytes=1 * MiB, max_bytes=256 * MiB, iters=16)
+    print(json.dumps({"spmd_ring_sweep": ring.as_dict(),
+                      "bound_gbps_per_row": NVLINK_RATE / 1e9}))
+    for i, smi in enumerate(card["cards"]):
+        print(f"card {i}: {smi}")
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -865,14 +1025,18 @@ def main(argv=None) -> int:
     )
     log(f"[fabric] phase {time.perf_counter() - t:.3f} s")
 
+    bench = phase_bench(device, card["hbm_rate"], CEIL_READ, CEIL_COPY, CEIL_TRIP,
+                        bench_kw={}, gb_max=1 * GiB)
+
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "fabric_handles": fab["launches_handles"],
-                 "copy_bench": fab["launches_copy_bench"]}
-    rows_by_kernel = {**kern, **fab["rows"]}
+                 "copy_bench": fab["launches_copy_bench"],
+                 "bench": bench["launches"]}
+    rows_by_kernel = {**kern, **fab["rows"], **bench["rows"]}
     line = []
     for name, rows in rows_by_kernel.items():
-        # K1-K4 are reported at one KV page across rows; K9/K10 at their
-        # timed run of copy_bench.
+        # K1-K4 are reported at one KV page across rows; K6-K10 at the timed
+        # launch of copy_bench or of the ceiling probe.
         timed = [r for r in rows if "bound_ms" in r]
         at = next((r for r in timed if r["nbytes"] == page
                    and r.get("case", "cross_row") == "cross_row"), timed[0])
@@ -901,6 +1065,9 @@ def main(argv=None) -> int:
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",
             "plain_loop_gbps", "alloc_p50_us", "free_p50_us")},
+        "ceiling": bench["ceiling"],
+        "bench": {"value": bench["bench"]["value"], "vs_hbm": bench["bench"]["vs_hbm"],
+                  "grade": [r[:2] for r in bench["grade"]]},
         "seconds": time.perf_counter() - t_all,
     }
     log("[summary] " + json.dumps(summary))

@@ -11,8 +11,11 @@ handles) with hand-written CUDA copy kernels for aligned transfers
 (:mod:`oncilla_tpu_torch.ops.dma`); the one-sided device fabric
 (:mod:`oncilla_tpu_torch.ops.ici`, :mod:`oncilla_tpu_torch.parallel`, the
 kernel in :mod:`oncilla_tpu_torch.ops.fabric`) behind REMOTE_DEVICE handles
-of ``Ocm(remote=...)``; bench.py's copy legs
-(:mod:`oncilla_tpu_torch.benchmarks.copy_bench`); and Llama paged-KV decode
+of ``Ocm(remote=...)``; bench.py's measurement path
+(:mod:`oncilla_tpu_torch.benchmarks.bench`: the copy legs, the HBM ceiling
+probes with their kernels in :mod:`oncilla_tpu_torch.ops.ceiling_loops`, the
+size sweep, graded by :mod:`oncilla_tpu_torch.benchmarks.check`); and Llama
+paged-KV decode
 (:mod:`oncilla_tpu_torch.models`). Public API mirrors inc/oncillamem.h:69-89
 of the reference.
 """

@@ -1,0 +1,186 @@
+"""The oncilla bench on one card: ``bench.py``'s measurement path in the port.
+
+Prints one JSON line in ``bench.py``'s shape: ``metric``, ``value`` (GB/s of
+HBM traffic, 2 bytes a copied byte), ``unit``, ``vs_hbm`` (``value`` over the
+card's datasheet memory rate, not a TPU's), ``device``, ``detail`` and, last,
+``ok``. Its stages, in ``bench.py``'s order (``_run``, bench.py:411-752),
+each within the run's budget (``OCM_BENCH_DEADLINE_S``, 840 s by default) and
+each banking its own error under ``detail.errors`` so that a failed stage
+costs only its own fields:
+
+- the copy legs and their checks (:func:`.copy_bench.run`: alloc/free p50,
+  the plain loop, K9 at 2 and 4 streams, K10, the segment checks, the
+  one-sided and DMA-row checks), which give the headline;
+- ``ceiling``: the HBM ceiling probes K6-K8 (:func:`.ceiling.ceiling_probe`);
+- ``gb_sweep``: the size sweep over a 2 GiB + 256 MiB device arena, 128 MiB
+  to 1 GiB largest first and then 1 KiB to 64 MiB, each point
+  ``[write, read, read_amortized]`` (:func:`bench_gb_sweep`);
+- ``kv_decode``: paged-KV decode tokens/s, the small config, 256 tokens in
+  pages of 128.
+
+``dcn``, ``mfu``, ``gups`` and ``serving`` wait for later slices of the port
+and stand in ``detail.errors`` as "not ported"; ``ok`` is true when no other
+error is there. Grade a line with :mod:`.check`.
+
+Run on a CUDA machine: ``python -m oncilla_tpu_torch.benchmarks.bench``.
+Without CUDA it raises ``OcmDeviceError``; there is no fallback to the CPU.
+:func:`run` takes a device and sizes, and with ``timing=False`` (on the
+CPU, say) runs every stage and its checks with every rate None.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import torch
+
+import oncilla_tpu_torch as ocm
+from oncilla_tpu_torch import OcmKind
+from oncilla_tpu_torch.benchmarks import copy_bench
+from oncilla_tpu_torch.utils.platform import resolve_device
+
+NOT_PORTED = "not ported"
+# bench.py's stages that wait for later slices: the wire client (dcn, gups
+# through runtime.cluster), serving, and training (mfu).
+_LATER = ("dcn", "mfu", "gups", "serving")
+
+GB_ARENA = (2 << 30) + (256 << 20)
+# (min, max, iters, share of the stage's seconds, write cap, descending):
+# bench.py:880-883. The GB range runs first and largest first, its write
+# legs capped at 256 MiB.
+GB_RANGES = (
+    (128 << 20, 1 << 30, 1, 0.65, 256 << 20, True),
+    (1 << 10, 64 << 20, 4, 0.35, None, False),
+)
+
+
+def bench_gb_sweep(errors: dict, seconds: float = 205.0, device=None,
+                   timing: bool = True, arena_bytes: int = GB_ARENA,
+                   ranges=GB_RANGES) -> dict:
+    """bench.py's ``bench_gb_sweep`` (bench.py:844-909): per size
+    ``[write, read, read_amortized]`` GB/s; ``seconds`` bounds the stage and
+    is split across the ranges; sizes left out are listed under
+    ``dropped``."""
+    from oncilla_tpu_torch.benchmarks.sweep import size_sweep
+
+    try:
+        ctx = ocm.ocm_init(ocm.OcmConfig(host_arena_bytes=1 << 20,
+                                         device_arena_bytes=arena_bytes),
+                           device=device)
+        points, dropped = [], []
+        try:
+            for lo, hi, iters, share, wcap, desc in ranges:
+                res = size_sweep(
+                    ctx, OcmKind.LOCAL_DEVICE, min_bytes=lo, max_bytes=hi,
+                    iters=iters, budget_s=share * seconds, write_max_bytes=wcap,
+                    amortize_k=8, descending=desc, timing=timing,
+                )
+                points.extend(res.points)
+                dropped.extend(res.dropped)
+                for key, msg in res.errors.items():
+                    errors[f"gb_sweep {key}"] = msg
+        finally:
+            ctx.tini()
+        out = {str(p.nbytes): [p.write_gbps, p.read_gbps, p.read_amortized_gbps]
+               for p in points}
+        if dropped:
+            out["dropped"] = sorted(dropped)
+        return out
+    except Exception as e:  # noqa: BLE001 — a failed stage costs its own fields
+        errors["gb_sweep"] = f"{type(e).__name__}: {e}"
+        return {}
+
+
+def run(device=None, deadline_s: float = 840.0, timing: bool = True,
+        copy_kw: dict | None = None, ceiling_kw: dict | None = None,
+        gb_kw: dict | None = None, kv_kw: dict | None = None) -> dict:
+    """Every stage on ``device``; returns the JSON object. ``*_kw`` override
+    a stage's sizes (the defaults are bench.py's)."""
+    from oncilla_tpu_torch.benchmarks.ceiling import ceiling_probe
+    from oncilla_tpu_torch.benchmarks.kv_decode import run_bench
+
+    device = resolve_device(device)
+    timing = timing and device.type == "cuda"
+    deadline = time.monotonic() + deadline_s
+    detail: dict = {}
+    out = {
+        "metric": "ocm alloc+copy loop: one-card HBM arena copy bandwidth "
+                  "(2x bytes, read+write)",
+        "value": None, "unit": "GB/s", "vs_hbm": None,
+        "device": torch.cuda.get_device_name(device) if timing else str(device),
+        "detail": detail,
+    }
+    errors: dict[str, str] = {}
+    stage_s = detail["stage_s"] = {}
+    last = [time.monotonic()]
+
+    def mark(name: str) -> None:
+        now = time.monotonic()
+        stage_s[name] = now - last[0]
+        last[0] = now
+
+    def time_left() -> float:
+        return deadline - time.monotonic()
+
+    def budgeted(name: str, seconds_needed: float) -> bool:
+        if time_left() < seconds_needed:
+            errors[name] = f"skipped: {time_left():.0f}s left of budget"
+            return False
+        return True
+
+    # The copy legs bank the headline first; every later stage is optional.
+    legs = copy_bench.run(device, timing=timing, **(copy_kw or {}))
+    errors.update(legs["detail"].pop("errors", {}))
+    detail["copy_stage_s"] = legs["detail"].pop("stage_s")
+    detail.update(legs["detail"])
+    out["value"], out["vs_hbm"] = legs["value"], legs["vs_hbm"]
+    mark("copy_legs")
+
+    if budgeted("ceiling", 150):
+        try:
+            detail["ceiling"] = ceiling_probe(
+                deadline=time.monotonic() + min(300.0, time_left() - 60.0),
+                device=device, timing=timing, **(ceiling_kw or {}))
+        except Exception as e:  # noqa: BLE001
+            errors["ceiling"] = f"{type(e).__name__}: {e}"
+    mark("ceiling")
+
+    if budgeted("gb_sweep", 60):
+        detail["gb_sweep"] = bench_gb_sweep(
+            errors, seconds=max(30.0, min(420.0, time_left() - 120.0)),
+            device=device, timing=timing, **(gb_kw or {}))
+    mark("gb_sweep")
+
+    for name in _LATER:
+        errors[name] = NOT_PORTED
+
+    if budgeted("kv_decode", 200):
+        try:
+            kv = run_bench(**{"tokens_n": 256, "page_tokens": 128,
+                              **(kv_kw or {}), "device": device})
+            detail["kv_decode_tok_s"] = (
+                kv["tok_s"] if timing else dict.fromkeys(kv["tok_s"]))
+            if timing and "paging_overhead" in kv:
+                detail["kv_paging_overhead"] = kv["paging_overhead"]
+        except Exception as e:  # noqa: BLE001
+            errors["kv_decode"] = f"{type(e).__name__}: {e}"
+    mark("kv_decode")
+
+    detail["errors"] = errors
+    out["ok"] = all(v == NOT_PORTED for v in errors.values())
+    return out
+
+
+def main() -> None:
+    try:
+        budget = float(os.environ.get("OCM_BENCH_DEADLINE_S", "840"))
+    except ValueError:
+        budget = 840.0
+    device = resolve_device(None)
+    print(json.dumps(run(device, deadline_s=budget)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -54,20 +54,28 @@ def copy_loop_plain(buf: torch.Tensor, nbytes: int, iters: int,
     return buf
 
 
-def copy_loop(buf: torch.Tensor, nbytes: int, iters: int,
-              streams: int = 2) -> torch.Tensor:
-    """K9: ``iters`` ping-pong copies of ``nbytes`` in ``streams`` streams
-    (``nbytes`` splits into ``2*streams`` whole blocks, bench.py:119-121)."""
-    assert (nbytes // BLOCK) % (2 * streams) == 0, "nbytes must split across streams"
+def launch_copy_loop(buf: torch.Tensor, nbytes: int, iters: int, streams: int,
+                     what: str) -> None:
+    """One launch of ``ocm_copy_loop`` on a CUDA buffer, counted by the
+    caller: K9's wrapper here, K7's in :mod:`.ceiling_loops`."""
     flat = _check_loop(buf, nbytes, iters)
-    if not dma.route(buf):
-        return copy_loop_plain(buf, nbytes, iters, streams)
     dma.ptr16(flat)
     arrive = torch.zeros(streams, dtype=torch.int64, device=buf.device)
     lib = dma.library("copy_loops.cu", _SIGNATURES)
     dma.check(lib, lib.ocm_copy_loop(
         buf.device.index, flat.data_ptr(), nbytes // streams, streams, iters,
-        arrive.data_ptr(), dma.stream_of(buf)), "copy_loop")
+        arrive.data_ptr(), dma.stream_of(buf)), what)
+
+
+def copy_loop(buf: torch.Tensor, nbytes: int, iters: int,
+              streams: int = 2) -> torch.Tensor:
+    """K9: ``iters`` ping-pong copies of ``nbytes`` in ``streams`` streams
+    (``nbytes`` splits into ``2*streams`` whole blocks, bench.py:119-121)."""
+    assert (nbytes // BLOCK) % (2 * streams) == 0, "nbytes must split across streams"
+    _check_loop(buf, nbytes, iters)
+    if not dma.route(buf):
+        return copy_loop_plain(buf, nbytes, iters, streams)
+    launch_copy_loop(buf, nbytes, iters, streams, "copy_loop")
     copy_loop.launches += 1
     return buf
 

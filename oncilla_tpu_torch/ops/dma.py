@@ -227,19 +227,27 @@ write_rows.launches = 0
 # -- K2: get ----------------------------------------------------------------
 
 
-def read_rows_plain(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
-    return buf.view(-1)[start:start + nbytes].clone()
+def read_rows_plain(buf: torch.Tensor, start: int, nbytes: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    src = buf.view(-1)[start:start + nbytes]
+    return src.clone() if out is None else out.copy_(src)
 
 
-def read_rows(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
-    """One-sided get of a BLOCK-aligned extent as a fresh flat uint8 tensor
-    on the arena's device."""
+def read_rows(buf: torch.Tensor, start: int, nbytes: int,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One-sided get of a BLOCK-aligned extent as a flat uint8 tensor on the
+    arena's device: a fresh one, or ``out`` (``nbytes`` contiguous uint8 on
+    that device), which is returned."""
     flat = flat_arena(buf)
     assert start % BLOCK == 0 and nbytes % BLOCK == 0 and nbytes > 0
     assert start + nbytes <= flat.numel(), "read past the arena's end"
+    if out is not None and (out.dtype != torch.uint8 or not out.is_contiguous()
+                            or out.numel() != nbytes or out.device != buf.device):
+        raise ValueError(f"out must be {nbytes} contiguous uint8 bytes on {buf.device}")
     if not route(buf):
-        return read_rows_plain(buf, start, nbytes)
-    out = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
+        return read_rows_plain(buf, start, nbytes, out)
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
     ptr16(flat, out)
     lib = _load()
     check(lib, lib.ocm_read_rows(
@@ -250,6 +258,19 @@ def read_rows(buf: torch.Tensor, start: int, nbytes: int) -> torch.Tensor:
 
 
 read_rows.launches = 0
+
+
+def read_rows_loop(buf: torch.Tensor, start: int, nbytes: int, k: int) -> torch.Tensor:
+    """``k`` back-to-back gets of the same extent (the counterpart of
+    ``pallas_read_rows_loop``, pallas_ici.py:505-521): K2 launched ``k``
+    times into one output tensor, which is returned. One output, as the
+    JAX program lets XLA reuse the dead ones: k outputs of 1 GiB would
+    hold k GiB."""
+    assert k >= 1
+    out = read_rows(buf, start, nbytes)
+    for _ in range(k - 1):
+        read_rows(buf, start, nbytes, out=out)
+    return out
 
 
 # -- K3: same-device extent copy --------------------------------------------
@@ -287,13 +308,17 @@ def local_copy(buf: torch.Tensor, src_off: int, dst_off: int,
 
 local_copy.launches = 0
 
+
 def kernels() -> tuple:
     """The wrapper of every kernel of the port, each with its ``launches``
-    count: K1-K3 here, K4 in :mod:`.fabric`, K9/K10 in :mod:`.copy_loops`."""
-    from oncilla_tpu_torch.ops import copy_loops, fabric
+    count: K1-K3 here, K4 in :mod:`.fabric`, K6-K8 in :mod:`.ceiling_loops`,
+    K9/K10 in :mod:`.copy_loops`."""
+    from oncilla_tpu_torch.ops import ceiling_loops, copy_loops, fabric
 
     return (write_rows, read_rows, local_copy, fabric.onesided_copy,
-            copy_loops.copy_loop, copy_loops.remote_loop)
+            ceiling_loops.read_stream, ceiling_loops.copy_stream_loop,
+            ceiling_loops.vmem_roundtrip, copy_loops.copy_loop,
+            copy_loops.remote_loop)
 
 
 def reset_launches() -> None:

@@ -55,13 +55,16 @@ class FabricRows:
     ``rows[d]`` is mesh entry d's flat uint8 row; ``sync[d]`` its two int64
     sync words on the same device; ``seq[d]`` the sequence number of the
     last transfer sent into row d (the value its recv flag reaches once that
-    transfer has landed). Rows are updated in place."""
+    transfer has landed); ``side`` the side streams of ``ring_shift``'s
+    sends across cards, by (card, "send" | "recv"), made at first use. Rows
+    are updated in place."""
 
     def __init__(self, rows):
         self.rows = list(rows)
         self.sync = [torch.zeros(2, dtype=torch.int64, device=r.device)
                      for r in self.rows]
         self.seq = [0] * len(self.rows)
+        self.side: dict = {}
 
     def __len__(self) -> int:
         return len(self.rows)

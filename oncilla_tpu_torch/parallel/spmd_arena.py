@@ -98,13 +98,51 @@ def ring_shift(arena: FabricRows, offset, nbytes: int, *,
     """Every row sends ``[offset, offset+nbytes)`` to its ring neighbour
     (the next row, or the previous one with ``reverse``) at the same
     offset. Every chunk is staged before any is written, as ``ppermute``
-    reads all sources before it writes."""
+    reads all sources before it writes. With rows on two or more cards, the
+    sends run at once (:func:`_concurrent_sends`)."""
     offset, d = int(offset), len(arena)
     staged = [_span(arena, i, offset, nbytes).clone() for i in range(d)]
     step = -1 if reverse else 1
-    for i, chunk in enumerate(staged):
-        _span(arena, (i + step) % d, offset, nbytes).copy_(chunk)
+    sends = [(chunk, _span(arena, (i + step) % d, offset, nbytes))
+             for i, chunk in enumerate(staged)]
+    devices = {r.device for r in arena.rows}
+    if len(devices) > 1 and all(dev.type == "cuda" for dev in devices):
+        _concurrent_sends(sends, arena.side)
+    else:
+        for chunk, dst in sends:
+            dst.copy_(chunk)
     return arena
+
+
+def _concurrent_sends(sends, side: dict) -> None:
+    """Every ``dst.copy_(src)`` at once, across cards. A copy between two
+    cards runs on the source card's current stream after the destination
+    card's, and then holds the destination card's current stream until it
+    has landed; on the cards' default streams a ring of such copies runs
+    one send after another (on four H100s, 90 GB/s a row at 256 MiB where
+    the links carry 300 at once). Here each copy runs between a send
+    stream of its source card and a receive stream of its destination card
+    (kept in ``side``), which first wait for everything queued on their
+    cards; each card's current stream then waits for both."""
+
+    def stream(dev: torch.device, role: str) -> torch.cuda.Stream:
+        if (dev, role) not in side:
+            side[dev, role] = torch.cuda.Stream(device=dev)
+        return side[dev, role]
+
+    cards = {t.device for pair in sends for t in pair}
+    ready = {dev: torch.cuda.current_stream(dev).record_event() for dev in cards}
+    for src, dst in sends:
+        send, recv = stream(src.device, "send"), stream(dst.device, "recv")
+        send.wait_event(ready[src.device])
+        recv.wait_event(ready[dst.device])
+        with torch.cuda.stream(send), torch.cuda.stream(recv):
+            dst.copy_(src)
+    for dev in cards:
+        cur = torch.cuda.current_stream(dev)
+        for role in ("send", "recv"):
+            if (dev, role) in side:
+                cur.wait_stream(side[dev, role])
 
 
 def read_typed(arena: FabricRows, dev: int, shape, dtype: torch.dtype, offset):

@@ -69,8 +69,9 @@ def test_cpu_calls_are_not_counted_as_launches(rng):
     dma.read_rows(buf, 0, BLOCK)
     dma.local_copy(buf, 0, BLOCK, BLOCK)
     assert dma.launches() == {"write_rows": 0, "read_rows": 0, "local_copy": 0,
-                              "onesided_copy": 0, "copy_loop": 0,
-                              "remote_loop": 0}
+                              "onesided_copy": 0, "read_stream": 0,
+                              "copy_stream_loop": 0, "vmem_roundtrip": 0,
+                              "copy_loop": 0, "remote_loop": 0}
 
 
 def test_contract_asserts(rng):
@@ -125,9 +126,9 @@ def test_build_targets_hopper():
 def test_build_covers_every_source(monkeypatch):
     """One library per source under csrc/, each named by a hash that also
     covers the shared header, so editing copy.cuh rebuilds them all."""
-    assert dma._SOURCES == ("copy_loops.cu", "dma.cu", "fabric.cu")
+    assert dma._SOURCES == ("ceiling.cu", "copy_loops.cu", "dma.cu", "fabric.cu")
     assert dma._HEADERS == ("copy.cuh",)
     targets = {dma._target(dma._CSRC / s) for s in dma._SOURCES}
-    assert len(targets) == 3
+    assert len(targets) == 4
     monkeypatch.setattr(dma, "_HEADERS", ())
     assert dma._target(dma._CSRC / "dma.cu") not in targets
