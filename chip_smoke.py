@@ -11,10 +11,16 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — builds the CUDA kernels from ``oncilla_tpu_torch/csrc``.
 3. kernels — each copy kernel (write_rows, read_rows, local_copy) against
-   its plain PyTorch version, byte for byte, at 4 KiB .. 1 GiB at offsets
-   above 4 GiB of a 16 GiB arena; times of the kernel, the plain version
-   and one PyTorch ``copy_`` on the same slices (CUDA events), beside the
-   bound 2*nbytes / datasheet HBM rate.
+   its plain PyTorch version, byte for byte, at 4 KiB .. 1 GiB + 4 KiB
+   (sizes that end on a bulk copy's short last tile) at offsets above 4 GiB
+   of a 16 GiB arena and off the 32 KiB tile grid; then, at one KV page and
+   at 1 GiB, times the way callers meet them
+   (``oncilla_tpu_torch/benchmarks/kernel_times``): ``ms`` from CUDA events
+   over calls that rotate over 8 extents a side at one page, so the L2 is
+   cold, ``device_ms`` from ``torch.profiler`` over the same calls,
+   ``host_us`` the wrapper's issue time at 4 KiB; the plain version and one
+   PyTorch ``copy_`` on the same extents, beside the bound
+   2*nbytes / datasheet HBM rate.
 4. ocm_test loop — ``ocm_init`` on a 16 GiB device arena: alloc, put, get,
    copy and free at 4 KiB .. 1 GiB on LOCAL_DEVICE and LOCAL_HOST, the copy
    matrix, scrub-on-free, the typed errors, the alloc p50; the kernels'
@@ -30,9 +36,10 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
 6. fabric — the one-sided device fabric on a 4-row ``SpmdIciPlane`` whose
    rows (2 GiB - 4 KiB each, the largest the JAX plane allows) all lie on
    the one card: the one-sided copy K4 against its plain version, byte for
-   byte, across rows up to 1 GiB, within a row (local fast path) and as a
-   ``force_remote`` loopback up to 512 MiB, with extents touching a row's
-   last block and every other byte of the fabric checked unchanged; then
+   byte, across rows up to 1 GiB + 4 KiB, within a row (local fast path)
+   and as a ``force_remote`` loopback up to 512 MiB, with extents touching
+   a row's last block and every other byte of the fabric checked unchanged,
+   timed at one cold page and at 1 GiB as phase 3 times K1-K3; then
    REMOTE_DEVICE handles booked by :class:`BookingBackend` (put/get/copy
    through the plane, ``Ocm(remote=...).copy`` riding K4 with no get) and
    ``ring_shift`` both ways; then ``copy_bench`` at ``bench.py``'s sizes
@@ -54,15 +61,17 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --across-cards`` (two or more cards) runs phases 1-2
 and phase 6's one-sided copies and handle path with the 4 rows on
-different cards: the fabric's cross-card form, peer-mapped stores over
-NVLink; then ``spmd_ring_sweep`` over those rows (every row sending to the
-next card at once, 1 MiB .. 256 MiB) beside every card's ``nvidia-smi``
-line.
+different cards: the fabric's cross-card form, TMA bulk stores through
+peer-mapped pointers over NVLink, byte-equal to the plain version and
+timed cuda:0 -> cuda:1 beside it and ``copy_``; then
+``spmd_ring_sweep`` over those rows (every row sending to the next card at
+once, 1 MiB .. 256 MiB) beside every card's ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import subprocess
@@ -109,6 +118,14 @@ CEIL_TRIP = {"total_bytes": 128 * MiB, "nbytes": 64 * MiB, "iters": 400,
              "chunk_bytes": 2 * MiB}
 _DMA_KERNELS = ("write_rows", "read_rows", "local_copy")
 
+# One Llama-3-8B KV page of 128 tokens, the size every page move has.
+PAGE = 16 * MiB
+# K1-K4 are held byte for byte against their plain versions at these sizes:
+# a bulk copy's short last tile (36 KiB, 1 MiB + 4 KiB, 1 GiB + 4 KiB with
+# 32 KiB tiles), one page and 1 GiB.
+CHECK_SIZES = (4 * KiB, 36 * KiB, MiB + 4 * KiB, PAGE, GiB, GiB + 4 * KiB)
+FABRIC_SIZES = CHECK_SIZES[:4] + (512 * MiB,) + CHECK_SIZES[4:]
+
 # NVLink between two H100 SXM cards, each way (datasheet): the bound of a
 # copy between rows on different cards.
 NVLINK_RATE = 450e9
@@ -143,6 +160,12 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device(measured: tuple, prefix: str = "") -> dict:
+    """``kernel_times.device_ms``'s (ms, method) as a row's keys."""
+    ms, by = measured
+    return {f"{prefix}device_ms": ms, f"{prefix}device_by": by}
+
+
 def _byte_err(want: torch.Tensor, got: torch.Tensor, at: int, n: int) -> int:
     """Largest byte difference over [at, at+n); outside that range (the
     rest of an arena) the two must be equal outright."""
@@ -151,10 +174,6 @@ def _byte_err(want: torch.Tensor, got: torch.Tensor, at: int, n: int) -> int:
         raise AssertionError(f"bytes outside [{at}, {at + n}) differ")
     return int((want[at:at + n].to(torch.int16)
                 - got[at:at + n].to(torch.int16)).abs().max())
-
-
-def iters_for(nbytes: int) -> int:
-    return int(min(200, max(10, (4 * GiB) // nbytes)))
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -195,8 +214,11 @@ def phase_build() -> float:
 
 
 def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
-                  rate: float, timing: bool = True) -> dict:
-    """Every kernel against its plain version at every size; times."""
+                  rate: float, timed=(), timing: bool = True) -> dict:
+    """Every kernel against its plain version at every size, byte for byte;
+    then, at each size of ``timed``, its times the way callers meet them
+    (``benchmarks/kernel_times``: a cold L2, device and host time)."""
+    from oncilla_tpu_torch.benchmarks import kernel_times as kt
     from oncilla_tpu_torch.ops import dma
 
     arena = torch.zeros(arena_bytes, dtype=torch.uint8, device=device)
@@ -204,12 +226,10 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
     arena.copy_(torch.randint(0, 256, (arena_bytes,), generator=gen,
                               dtype=torch.uint8, device=device))
     rows = {k: [] for k in _DMA_KERNELS}
+    src, dst = base, base + copy_gap
     for n in sizes:
         raw = torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8,
                             device=device)
-        src, dst = base, base + copy_gap
-        out = torch.empty(n, dtype=torch.uint8, device=device)
-
         ref = arena.clone()
         dma.write_rows_plain(ref, raw, src)
         dma.write_rows(arena, raw, src)
@@ -222,45 +242,61 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
         dma.local_copy_plain(ref, src, dst, n)
         dma.local_copy(arena, src, dst, n)
         err_c = _byte_err(ref, arena, dst, n)
-        del ref, got
+        del ref, got, raw
         errs = {"write_rows": err_w, "read_rows": err_r, "local_copy": err_c}
         for name, err in errs.items():
             if err != 0:
                 raise AssertionError(f"{name} differs from its plain version "
                                      f"at {n} B (max byte error {err})")
+            rows[name].append({"nbytes": n, "src": src, "dst": dst,
+                               "max_abs_err": float(err)})
+        log(f"[kernels] write_rows read_rows local_copy {n:>11d} B at {src} -> "
+            f"{dst}: max_abs_err 0")
+    if not timing:
+        return rows
 
+    # Issue time a call at 4 KiB; get as Ocm.get calls it, into a fresh tensor.
+    small = torch.randint(0, 256, (BLOCK,), generator=gen, dtype=torch.uint8,
+                          device=device)
+    host = {"write_rows": kt.host_us(lambda: dma.write_rows(arena, small, src)),
+            "read_rows": kt.host_us(lambda: dma.read_rows(arena, src, BLOCK)),
+            "local_copy": kt.host_us(lambda: dma.local_copy(arena, src, dst, BLOCK))}
+    for n in timed:
+        k = kt.rotation(n)
+        at = [(src + i * n, dst + i * n) for i in range(k)]
+        raws = [torch.empty(n, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen) for _ in range(k)]
+        outs = [torch.empty(n, dtype=torch.uint8, device=device) for _ in range(k)]
+        # get as decode's page fetch calls it, into a tensor it holds (out=).
+        names = {"write_rows": kt.REGS, "read_rows": kt.BULK, "local_copy": kt.REGS}
         fns = {
             "write_rows": (
-                lambda: dma.write_rows(arena, raw, src),
-                lambda: dma.write_rows_plain(arena, raw, src),
-                lambda: arena[src:src + n].copy_(raw),
+                lambda i, s, d: dma.write_rows(arena, raws[i], s),
+                lambda i, s, d: dma.write_rows_plain(arena, raws[i], s),
+                lambda i, s, d: arena[s:s + n].copy_(raws[i]),
             ),
             "read_rows": (
-                lambda: dma.read_rows(arena, src, n),
-                lambda: dma.read_rows_plain(arena, src, n),
-                lambda: out.copy_(arena[src:src + n]),
+                lambda i, s, d: dma.read_rows(arena, s, n, out=outs[i]),
+                lambda i, s, d: dma.read_rows_plain(arena, s, n, outs[i]),
+                lambda i, s, d: outs[i].copy_(arena[s:s + n]),
             ),
             "local_copy": (
-                lambda: dma.local_copy(arena, src, dst, n),
-                lambda: dma.local_copy_plain(arena, src, dst, n),
-                lambda: arena[dst:dst + n].copy_(arena[src:src + n]),
+                lambda i, s, d: dma.local_copy(arena, s, d, n),
+                lambda i, s, d: dma.local_copy_plain(arena, s, d, n),
+                lambda i, s, d: arena[d:d + n].copy_(arena[s:s + n]),
             ),
         }
         for name, (kern, plain, lib) in fns.items():
-            rec = {"nbytes": n, "src": src, "dst": dst,
-                   "max_abs_err": float(errs[name]),
+            calls = [[functools.partial(f, i, s, d) for i, (s, d) in enumerate(at)]
+                     for f in (kern, plain, lib)]
+            rec = {"nbytes": n, "extents": k, "ms": kt.cold_ms(calls[0]),
+                   **_device(kt.device_ms(calls[0], names[name])), "host_us": host[name],
+                   "plain_ms": kt.cold_ms(calls[1]), "library_ms": kt.cold_ms(calls[2]),
+                   **_device(kt.device_ms(calls[2], kt.MEMCPY), "library_"),
                    "bound_ms": 2 * n / rate * 1e3}
-            if timing:
-                it = iters_for(n)
-                rec["ms"] = event_ms(kern, it)
-                rec["plain_ms"] = event_ms(plain, it)
-                rec["library_ms"] = event_ms(lib, it)
             rows[name].append(rec)
-            log(f"[kernels] {name:10s} {n:>11d} B max_abs_err {rec['max_abs_err']:g} " + (
-                f"ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
-                f"library_ms={rec['library_ms']:.6f} "
-                f"bound_ms={rec['bound_ms']:.6f}" if timing else ""))
-        del raw, out
+            log(f"[kernels] {name:10s} {json.dumps(rec)}")
+        del raws, outs
     del arena
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -595,12 +631,20 @@ def _fabric_cases(row_bytes: int, sizes):
     """(case, size, src row, dst row, src_off, dst_off, force_remote): across
     rows at every size; within a row (local fast path) and as a loopback at
     every size that fits twice in a row. Every case touches a row's last
-    block with its source or its destination."""
+    block with its source or its destination, and at least one of its
+    offsets is off the 32 KiB tile grid."""
     for n in sizes:
         yield "cross_row", n, 0, 1, BLOCK, row_bytes - n, False
         if 2 * n <= row_bytes:
             yield "same_row", n, 2, 2, 0, row_bytes - n, False
             yield "loopback", n, 3, 3, row_bytes - n, 0, True
+
+
+def _rotated(off: int, n: int, row_bytes: int, k: int) -> list[int]:
+    """``k`` disjoint extents of ``n`` bytes from ``off``, moving away from
+    the row's end if the extent touches it, else towards it."""
+    step = -n if off + n == row_bytes else n
+    return [off + i * step for i in range(k)]
 
 
 def _same_rows(want, got, what: str) -> None:
@@ -616,15 +660,17 @@ def _same_rows(want, got, what: str) -> None:
 def phase_fabric(device, row_bytes: int, sizes, rate: float,
                  handle_sizes, ring_bytes: int, bench_kw: dict,
                  timing: bool = True, check_launches: bool = True,
-                 mesh=None, with_bench: bool = True) -> dict:
+                 mesh=None, with_bench: bool = True, timed=()) -> dict:
     """The fabric: K4 against its plain version on a 4-row plane, then the
     handle-level main path, then (``with_bench``) copy_bench and the copy
     loops on ``device``. The rows lie on ``mesh`` (4 devices), by default
     all on ``device``; rows on different cards make the cross-row cases
-    cross-card, bounded by NVLink as well as HBM."""
+    cross-card, bounded by NVLink as well as HBM. Each case at a size of
+    ``timed`` is timed as phase 3 times K1-K3."""
     import oncilla_tpu_torch as ocm
     from oncilla_tpu_torch import OcmKind
     from oncilla_tpu_torch.benchmarks import copy_bench
+    from oncilla_tpu_torch.benchmarks import kernel_times as kt
     from oncilla_tpu_torch.ops import copy_loops, dma, fabric
     from oncilla_tpu_torch.ops.ici import SpmdIciPlane
     from oncilla_tpu_torch.parallel import spmd_arena as sa
@@ -647,29 +693,40 @@ def phase_fabric(device, row_bytes: int, sizes, rate: float,
         fabric.onesided_copy(arena, a, b, so, do, n, force_remote=force)
         _same_rows(ref, arena, f"onesided_copy {case} {n} B")
         del ref
-        bound_s = 2 * n / rate
-        if mesh[a] != mesh[b]:
-            bound_s = max(bound_s, n / NVLINK_RATE)
-        rec = {"case": case, "nbytes": n, "max_abs_err": 0.0,
-               "devices": f"{mesh[a]}->{mesh[b]}", "bound_ms": bound_s * 1e3}
-        if timing:
-            src = arena.rows[a][so:so + n]
-            dst = arena.rows[b][do:do + n]
-            it = iters_for(n)
+        k4.append({"case": case, "nbytes": n, "max_abs_err": 0.0,
+                   "devices": f"{mesh[a]}->{mesh[b]}"})
+        log(f"[fabric] onesided_copy {case:9s} {mesh[a]}->{mesh[b]} {n:>11d} B "
+            f"at {so} -> {do} max_abs_err 0")
+    if timing:
+        host = kt.host_us(lambda: fabric.onesided_copy(
+            arena, 0, 1, BLOCK, row_bytes - BLOCK, BLOCK))
+        for case, n, a, b, so, do, force in _fabric_cases(row_bytes, timed):
+            k = kt.rotation(n)
+            at = list(zip(_rotated(so, n, row_bytes, k), _rotated(do, n, row_bytes, k)))
+            src, dst = arena.rows[a], arena.rows[b]
+            bound_s = 2 * n / rate
+            if mesh[a] != mesh[b]:
+                bound_s = max(bound_s, n / NVLINK_RATE)
+            kern = [functools.partial(fabric.onesided_copy, arena, a, b, s, d, n,
+                                      force_remote=force) for s, d in at]
+            plain = [functools.partial(fabric.onesided_copy_plain, arena, a, b, s, d, n)
+                     for s, d in at]
+            lib = [functools.partial(dst[d:d + n].copy_, src[s:s + n]) for s, d in at]
+            names = kt.REGS if case == "same_row" else kt.SEND_BULK
             # Timed on the destination's stream, where a copy completes (a
             # send across cards first waits for that stream's earlier work).
             with torch.cuda.device(mesh[b]):
-                rec["ms"] = event_ms(lambda: fabric.onesided_copy(
-                    arena, a, b, so, do, n, force_remote=force), it)
-                rec["plain_ms"] = event_ms(lambda: fabric.onesided_copy_plain(
-                    arena, a, b, so, do, n), it)
-                rec["library_ms"] = event_ms(lambda: dst.copy_(src), it)
-        k4.append(rec)
-        log(f"[fabric] onesided_copy {case:9s} {rec['devices']} {n:>11d} B "
-            "max_abs_err 0 " + (
-            f"ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
-            f"library_ms={rec['library_ms']:.6f} bound_ms={rec['bound_ms']:.6f}"
-            if timing else ""))
+                rec = {"case": case, "nbytes": n, "extents": k,
+                       "devices": f"{mesh[a]}->{mesh[b]}",
+                       "ms": kt.cold_ms(kern), **_device(kt.device_ms(kern, names)),
+                       "host_us": host if case == "cross_row" else None,
+                       "plain_ms": kt.cold_ms(plain), "library_ms": kt.cold_ms(lib),
+                       **_device(kt.device_ms(lib, kt.MEMCPY), "library_"),
+                       "bound_ms": bound_s * 1e3}
+            if mesh[a] != mesh[b]:
+                rec["send_body"] = "TMA bulk stores"  # every send's
+            k4.append(rec)
+            log(f"[fabric] onesided_copy {json.dumps(rec)}")
     if on_card:
         for d in set(mesh):
             torch.cuda.synchronize(d)
@@ -946,10 +1003,10 @@ def across_cards() -> int:
     phase_build()
     mesh = [torch.device("cuda", i % count) for i in range(4)]
     fab = phase_fabric(
-        mesh[0], row_bytes=2 * GiB - BLOCK,
-        sizes=(4 * KiB, 1 * MiB, 16 * MiB, 64 * MiB, 512 * MiB, 1 * GiB),
-        rate=card["hbm_rate"], handle_sizes=(4 * KiB, 16 * MiB, 256 * MiB),
+        mesh[0], row_bytes=2 * GiB - BLOCK, sizes=FABRIC_SIZES,
+        rate=card["hbm_rate"], handle_sizes=(4 * KiB, PAGE, 256 * MiB),
         ring_bytes=64 * MiB, bench_kw={}, mesh=mesh, with_bench=False,
+        timed=(PAGE, GiB),
     )
     print(json.dumps({"onesided_copy_across_cards": fab["rows"]["onesided_copy"],
                       "launches": fab["launches_handles"]}))
@@ -989,9 +1046,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     cfg = llama.LlamaConfig.llama3_8b()
     page = page_bytes(cfg, PAGE_TOKENS, cfg.dtype)  # the size every page move has
-    sizes = (4 * KiB, 1 * MiB, page, 32 * MiB, 1 * GiB)
-    kern = phase_kernels(device, 16 * GiB, sizes, base=5 * GiB,
-                         copy_gap=4 * GiB + 4096, rate=card["hbm_rate"])
+    if page != PAGE:
+        raise AssertionError(f"a Llama-3-8B page is {page} B, not {PAGE}")
+    # Offsets off the 32 KiB tile grid (5 GiB + 12 KiB, 9 GiB + 16 KiB).
+    kern = phase_kernels(device, 16 * GiB, CHECK_SIZES, base=5 * GiB + 12 * KiB,
+                         copy_gap=4 * GiB + 4096, rate=card["hbm_rate"],
+                         timed=(page, GiB))
     log(f"[kernels] phase {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -1018,10 +1078,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     fab = phase_fabric(
         device, row_bytes=2 * GiB - BLOCK,
-        sizes=(4 * KiB, 1 * MiB, page, 64 * MiB, 512 * MiB, 1 * GiB),
-        rate=card["hbm_rate"],
+        sizes=FABRIC_SIZES, rate=card["hbm_rate"],
         handle_sizes=(4 * KiB, page, 256 * MiB), ring_bytes=64 * MiB,
         bench_kw={"arena_bytes": 256 * MiB, "nbytes": 64 * MiB, "iters": 2000},
+        timed=(page, GiB),
     )
     log(f"[fabric] phase {time.perf_counter() - t:.3f} s")
 
@@ -1035,8 +1095,9 @@ def main(argv=None) -> int:
     rows_by_kernel = {**kern, **fab["rows"], **bench["rows"]}
     line = []
     for name, rows in rows_by_kernel.items():
-        # K1-K4 are reported at one KV page across rows; K6-K10 at the timed
-        # launch of copy_bench or of the ceiling probe.
+        # K1-K4 are reported at one cold KV page across rows, with their
+        # device and host times; K6-K10 at the timed launch of copy_bench or
+        # of the ceiling probe.
         timed = [r for r in rows if "bound_ms" in r]
         at = next((r for r in timed if r["nbytes"] == page
                    and r.get("case", "cross_row") == "cross_row"), timed[0])
@@ -1045,13 +1106,16 @@ def main(argv=None) -> int:
             "replaces": _REPLACES[name],
             "launches": sum(c[name] for c in main_path.values()),
             **{f"launches_{p}": c[name] for p, c in main_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if "max_abs_err" in r),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": "bytes",
             "library_ms": at["library_ms"], "nbytes": at["nbytes"],
-            "sizes": [{k: r.get(k) for k in ("case", "nbytes", "iters", "ms",
-                                             "plain_ms", "library_ms", "bound_ms")
-                       if k in r} for r in timed],
+            **{k: at[k] for k in ("device_ms", "device_by", "host_us",
+                                  "library_device_ms") if k in at},
+            "sizes": [{k: r.get(k) for k in (
+                "case", "nbytes", "iters", "extents", "ms", "device_ms", "device_by",
+                "host_us", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+                if k in r} for r in timed],
         })
     missing = [e["name"] for e in line if e["launches"] == 0]
     if missing:

@@ -44,8 +44,10 @@
 //     depth-1 loads and two stores are in flight: a store overlaps the next
 //     tiles' loads, where the TPU kernel runs each chunk's down and up legs
 //     one after the other.
-// Every mbarrier wait traps after ~10 s (copy.cuh's limit), so a lost
-// arrival is a CUDA error at the next synchronise, not a hang.
+// The bulk-copy and mbarrier helpers are copy.cuh's, shared with the one-shot
+// bulk copy of K2 and K4. Every mbarrier wait traps after ~10 s (copy.cuh's
+// limit), so a lost arrival is a CUDA error at the next synchronise, not a
+// hang.
 //
 // Bound: K6 reads total*iters bytes and writes none; K8 moves 2*nbytes of
 // HBM traffic per iteration (nbytes read, nbytes written). Both are bound
@@ -61,62 +63,8 @@
 
 namespace {
 
-constexpr int kSlots = 6;
-constexpr long long kTileMax = 32 << 10;  // 6 slots: 192 KiB of shared memory
+constexpr int kSlots = 6;  // 6 slots of kTileMax (copy.cuh): 192 KiB of shared memory
 constexpr int kStreamThreads = 256;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Posts a bulk load of `bytes` from global `src` into shared `dst`; it
-// completes the current phase of `bar` (one arrival that expects the bytes).
-__device__ __forceinline__ void load_tile(uint8_t* dst, const uint8_t* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Posts a bulk store of `bytes` from shared `src` to global `dst` as one
-// bulk group.
-__device__ __forceinline__ void store_tile(uint8_t* dst, const uint8_t* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-                   dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Waits until phase `parity` of `bar` has completed, or traps.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  const unsigned long long t0 = now_ns();
-  uint32_t done = 0;
-  for (;;) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (now_ns() - t0 > kSpinLimitNs) __trap();
-  }
-}
 
 // K6. CTA b owns the contiguous tiles [lo, lo + per) of a sweep (`tiles`
 // tiles in all) and reads them in order, `iters` times: its position k is
@@ -209,19 +157,6 @@ roundtrip_kernel(uint8_t* buf, long long tile, long long tiles,
     }
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// The tile for a chunk: kTileMax, or the largest power of two dividing it.
-long long tile_for(long long chunk) {
-  long long tile = kTileMax;
-  while (chunk % tile) tile >>= 1;
-  return tile;
-}
-
-template <typename K>
-int set_smem(K kernel, long long smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -1,9 +1,42 @@
-// Shared pieces of the port's copy kernels (dma.cu, fabric.cu, copy_loops.cu):
-// the 16-byte copy loop every kernel is built on, the grid sizing, and the
+// Shared pieces of the port's copy kernels (dma.cu, fabric.cu, ceiling.cu,
+// copy_loops.cu): the 16-byte register copy loop, the TMA bulk-copy helpers
+// and the one-shot bulk copy built on them, the grid sizing, and the
 // system-scope loads, stores and clock the fabric's completion flags use.
 //
 // Each .cu that includes this file is built into a library of its own, so
 // everything here has internal linkage.
+//
+// The one-shot bulk copy (bulk_copy_cta / bulk_copy_kernel; K2's get and
+// K4's send). Bound: a copy of n bytes moves 2*n bytes of HBM traffic (n
+// read, n written), 2*n over 3.35 TB/s on an H100 SXM.
+// Design: the register body (copy_words) spends a thread's registers and
+// instructions on every 16 bytes, and its stores trail its loads inside
+// each thread. Here one thread a CTA hands whole tiles to the Tensor Memory
+// Accelerator: a bulk load (cp.async.bulk) of a tile from global into a
+// slot of a shared-memory ring, whose arrival completes the slot's
+// mbarrier, then a bulk store of the slot to the destination. On an H100
+// (PERF.md) it takes 1.5 % less device time than the register body
+// at 1 GiB and 5 % less at one 16 MiB page with a cold L2, where it
+// matches Tensor.copy_; at 1 GiB it is still 3.6-5 % behind Tensor.copy_.
+//   - Grid: a persistent grid, kept under one CTA a SM (the caller's plan,
+//     ops/dma.py bulk_plan); CTA b of G takes the contiguous tiles
+//     [b*T/G, (b+1)*T/G) of the T tiles, as K6 does, so a CTA streams its
+//     own stretch of memory.
+//   - Tiles: at most kTileMax bytes; the last tile of a copy may be shorter
+//     (a size is a multiple of 4096, not of the tile). Sizes and addresses
+//     are multiples of 16, as cp.async.bulk requires.
+//   - The ring: `slots` tiles a CTA, one mbarrier a slot; a slot's k-th use
+//     completes its barrier's phase k, so the wait passes on parity k & 1.
+//   - One thread drives it: it waits for tile k's load, posts tile k's bulk
+//     store, then, once every store but tile k's has read its slot
+//     (cp.async.bulk.wait_group.read 1), loads tile k-1+depth into tile
+//     k-1's slot. Within one copy no tile is loaded after it is stored, so
+//     a slot is free once its store has read it; K8 waits for the stores
+//     to complete only because it reloads bytes it stored. The CTA ends
+//     with cp.async.bulk.wait_group 0: its stores have completed.
+// The tile, the slots and the CTAs a SM were chosen on an H100 by
+// `python3 scripts/tune_bulk_plan.py` (PERF.md: the table of every
+// candidate at one cold 16 MiB page and at 1 GiB).
 
 #pragma once
 
@@ -17,6 +50,9 @@ constexpr int kCtasPerSm = 8;
 // A flag wait that has not been satisfied after this long traps, so a lost
 // completion becomes a CUDA error at the next synchronise, not a hang.
 constexpr unsigned long long kSpinLimitNs = 10ull * 1000 * 1000 * 1000;
+// The largest TMA tile, and the most ring slots a CTA may have.
+constexpr long long kTileMax = 32 << 10;
+constexpr int kMaxSlots = 16;
 
 // Copies n 16-byte words src -> dst. Thread t of nt cooperating threads
 // takes words t, t+nt, ...: four loads in flight before their stores.
@@ -72,6 +108,119 @@ __device__ __forceinline__ void wait_flag_sys(const long long* flag,
   }
 }
 
+// -- TMA bulk copies ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Posts a bulk load of `bytes` from global `src` into shared `dst`; it
+// completes the current phase of `bar` (one arrival that expects the bytes).
+__device__ __forceinline__ void load_tile(uint8_t* dst, const uint8_t* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Posts a bulk store of `bytes` from shared `src` to global `dst` as one
+// bulk group.
+__device__ __forceinline__ void store_tile(uint8_t* dst, const uint8_t* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until phase `parity` of `bar` has completed, or traps.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const unsigned long long t0 = now_ns();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (now_ns() - t0 > kSpinLimitNs) __trap();
+  }
+}
+
+// This CTA's share of the one-shot copy dst[0, n) <- src[0, n) in tiles of
+// `tile` bytes (the header's design note). Called by one thread; `ring`
+// holds `slots` tiles, `bars` `slots` mbarriers. Returns once the CTA's
+// stores have completed.
+__device__ __forceinline__ void bulk_copy_cta(const uint8_t* src, uint8_t* dst,
+                                              long long n, long long tile,
+                                              int slots, uint8_t* ring,
+                                              uint64_t* bars) {
+  const long long tiles = (n + tile - 1) / tile;
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long lo = b * tiles / G;
+  const long long per = (b + 1) * tiles / G - lo;  // >= 1: G <= tiles
+  const long long depth = per < slots ? per : slots;
+  auto bytes = [&](long long k) {
+    const long long left = n - (lo + k) * tile;
+    return static_cast<uint32_t>(left < tile ? left : tile);
+  };
+  for (int s = 0; s < depth; ++s) mbar_init(&bars[s]);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  for (long long k = 0; k < depth; ++k) {
+    load_tile(ring + k * tile, src + (lo + k) * tile, bytes(k), &bars[k]);
+  }
+  for (long long k = 0; k < per; ++k) {
+    const long long s = k % depth;
+    mbar_wait(&bars[s], static_cast<uint32_t>((k / depth) & 1));
+    store_tile(dst + (lo + k) * tile, ring + s * tile, bytes(k));
+    const long long j = k - 1 + depth;  // the next load, into tile k-1's slot
+    if (k >= 1 && j < per) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load_tile(ring + (j % depth) * tile, src + (lo + j) * tile, bytes(j),
+                &bars[j % depth]);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// K2's kernel: the bulk copy alone. One warp a CTA, of which thread 0 works.
+__global__ void __launch_bounds__(32)
+bulk_copy_kernel(const uint8_t* src, uint8_t* dst, long long n,
+                 long long tile, int slots) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t bars[kMaxSlots];
+  if (threadIdx.x == 0) bulk_copy_cta(src, dst, n, tile, slots, ring, bars);
+}
+
+// The tile for a chunk: kTileMax, or the largest power of two dividing it.
+inline long long tile_for(long long chunk) {
+  long long tile = kTileMax;
+  while (chunk % tile) tile >>= 1;
+  return tile;
+}
+
+template <typename K>
+inline int set_smem(K kernel, long long smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 inline int sm_count(int device) {
   static int cache[64] = {0};
   if (device < 0 || device >= 64) return 132;
@@ -101,6 +250,46 @@ inline int launch_copy(int device, const void* src, void* dst, long long nbytes,
   if (n16 <= 0) return (int)cudaSuccess;
   copy_u4<<<copy_grid(device, n16), kThreads, 0, stream>>>(
       static_cast<const uint4*>(src), static_cast<uint4*>(dst), n16);
+  return (int)cudaGetLastError();
+}
+
+// Checks a bulk copy's plan (grid, tile, slots: ops/dma.py bulk_plan) for a
+// copy of n bytes, and raises `kernel`'s dynamic shared-memory limit on
+// `device` to the ring's slots * tile bytes when it is below that; `allowed`
+// keeps the limit set on each device, so a steady launch makes no runtime
+// call for it. A ring too large for the card is refused by the launch.
+template <typename K>
+int bulk_setup(K kernel, int device, long long n, int grid, long long tile,
+               int slots, long long (&allowed)[64]) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  // At least two slots: with one, the refill of tile k would be posted only
+  // after the wait for it (bulk_copy_cta).
+  if (n <= 0 || n % 16 || tile <= 0 || tile % 16 || tile > kTileMax ||
+      slots < 2 || slots > kMaxSlots || grid < 1 ||
+      grid > (n + tile - 1) / tile || device < 0 || device >= 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = slots * tile;
+  if (allowed[device] < smem) {
+    const int rc = set_smem(kernel, smem);
+    if (rc != 0) return rc;
+    allowed[device] = smem;
+  }
+  return (int)cudaSuccess;
+}
+
+// Launches bulk_copy_kernel: dst[0, n) <- src[0, n) on `grid` CTAs.
+inline int launch_bulk(int device, const void* src, void* dst, long long n,
+                       int grid, long long tile, int slots,
+                       cudaStream_t stream) {
+  static long long allowed[64] = {0};
+  const int rc = bulk_setup(bulk_copy_kernel, device, n, grid, tile, slots,
+                            allowed);
+  if (rc != 0) return rc;
+  bulk_copy_kernel<<<grid, 32, slots * tile, stream>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), n, tile,
+      slots);
   return (int)cudaGetLastError();
 }
 

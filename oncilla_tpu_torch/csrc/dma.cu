@@ -14,16 +14,21 @@
 // dominates.
 //
 // Design: the TPU kernels handed the copy to the DMA engine as two
-// overlapped descriptors. A GPU copy is done by the SMs, so this is one
-// grid-stride loop of 16-byte (uint4) loads and stores, four independent
-// loads in flight per thread before their stores, byte offsets in int64
-// (arenas exceed 2 GiB), and a grid of 8 CTAs of 256 threads per SM (capped
-// by the work) so all 132 SMs keep enough requests outstanding to saturate
-// HBM. All three entry points share the one kernel (copy.cuh, which the
-// fabric's local fast path uses too); the caller guarantees 16-byte aligned
-// pointers and a size that is a multiple of 16 (offsets and sizes are
-// 4096-byte aligned). TMA / cp.async.bulk designs are left for a later
-// change.
+// overlapped descriptors.
+//   - K2 (get) hands it to the Tensor Memory Accelerator: copy.cuh's
+//     one-shot bulk copy, tiles of up to 32 KiB bulk-loaded into a ring of
+//     shared memory and bulk-stored out of it by one thread a CTA, on a
+//     persistent grid of at most one CTA a SM. The wrapper passes the grid,
+//     the tile and the ring's slots (ops/dma.py bulk_plan); why this beats
+//     the register body, and how the three were chosen, is in copy.cuh.
+//   - K1 (put) and K3 (same-device copy) keep the register body: one
+//     grid-stride loop of 16-byte (uint4) loads and stores, four
+//     independent loads in flight per thread before their stores, byte
+//     offsets in int64 (arenas exceed 2 GiB), and a grid of 8 CTAs of 256
+//     threads per SM (capped by the work), shared with the fabric's local
+//     fast path (copy.cuh).
+// The caller guarantees 16-byte aligned pointers and a size that is a
+// multiple of 16 (offsets and sizes are 4096-byte aligned).
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream (PyTorch's current stream), does not synchronise, and
@@ -40,11 +45,14 @@ int ocm_write_rows(int device, void* arena, const void* rows,
                      nbytes, static_cast<cudaStream_t>(stream));
 }
 
-// K2: out[0, nbytes) <- arena[src_off, src_off+nbytes)
+// K2: out[0, nbytes) <- arena[src_off, src_off+nbytes), a bulk copy on
+// `grid` CTAs in tiles of `tile` bytes through a ring of `slots` tiles.
 int ocm_read_rows(int device, const void* arena, void* out,
-                  long long src_off, long long nbytes, void* stream) {
-  return launch_copy(device, static_cast<const uint8_t*>(arena) + src_off, out,
-                     nbytes, static_cast<cudaStream_t>(stream));
+                  long long src_off, long long nbytes, int grid,
+                  long long tile, int slots, void* stream) {
+  return launch_bulk(device, static_cast<const uint8_t*>(arena) + src_off, out,
+                     nbytes, grid, tile, slots,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // K3: arena[dst_off, +nbytes) <- arena[src_off, +nbytes), ranges disjoint

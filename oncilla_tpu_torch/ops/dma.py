@@ -25,11 +25,16 @@ with ``ctypes`` (:func:`library`), so a checkout needs nothing prebuilt. The
 launch counters of every kernel of the port are read and reset here
 (:func:`launches`, :func:`reset_launches`). What bounds each kernel and how
 it is designed is noted in its CUDA source.
+
+K2 (and K4's send, :mod:`.fabric`) run ``csrc/copy.cuh``'s TMA bulk copy,
+whose grid, tile and ring the wrapper plans (:func:`bulk_plan`); K1 and K3
+keep the 16-byte register copy body.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,6 +42,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -55,6 +61,54 @@ _NVCC_FLAGS = (
 _libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 BUILD_LOG: dict[str, str] = {}
+
+
+# The bulk copy's plan (csrc/copy.cuh): tiles of BULK_TILE bytes, a ring of
+# BULK_SLOTS tiles a CTA, at most BULK_CTAS_PER_SM CTAs a SM. Chosen on an
+# H100 at one cold 16 MiB page and at 1 GiB by
+# ``python3 scripts/tune_bulk_plan.py`` (PERF.md).
+BULK_TILE = 16 << 10
+BULK_SLOTS = 8
+BULK_CTAS_PER_SM = 1
+
+
+class BulkPlan(NamedTuple):
+    grid: int   # CTAs
+    tile: int   # bytes a tile; the last tile of a copy may be shorter
+    slots: int  # tiles in a CTA's shared-memory ring
+
+
+@functools.lru_cache(maxsize=256)
+def bulk_plan(nbytes: int, sms: int) -> BulkPlan:
+    """The launch of a bulk copy of ``nbytes`` on a card of ``sms`` SMs: one
+    CTA a tile up to ``BULK_CTAS_PER_SM`` CTAs a SM (cached: a caller moves
+    pages of one size)."""
+    tiles = -(-nbytes // BULK_TILE)
+    return BulkPlan(min(tiles, BULK_CTAS_PER_SM * sms), BULK_TILE, BULK_SLOTS)
+
+
+def bulk_tiles(nbytes: int, plan: BulkPlan):
+    """Yields (CTA, byte offset, bytes) of every tile the kernel copies, by
+    its formula: CTA b of G takes tiles [b*T//G, (b+1)*T//G) of the T
+    tiles, each ``plan.tile`` bytes but the last, which ends at ``nbytes``."""
+    tiles = -(-nbytes // plan.tile)
+    for b in range(plan.grid):
+        for k in range(b * tiles // plan.grid, (b + 1) * tiles // plan.grid):
+            off = k * plan.tile
+            yield b, off, min(plan.tile, nbytes - off)
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the card CUDA tensor ``t`` lies on (cached)."""
+    index = t.get_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def pallas_supported(offset_a: int, offset_b: int, nbytes: int) -> bool:
@@ -128,6 +182,9 @@ def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
     if any is out of date. ``signatures`` maps each entry point to its
     ``argtypes``; every entry point returns a CUDA error code (int), and
     each library has ``ocm_error_string``."""
+    lib = _libs.get(source)
+    if lib is not None:  # built and loaded: no lock on the launch path
+        return lib
     with _lib_lock:
         lib = _libs.get(source)
         if lib is None:
@@ -145,7 +202,7 @@ def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
 
 _SIGNATURES = {
     "ocm_write_rows": [CI, VP, VP, LL, LL, VP],
-    "ocm_read_rows": [CI, VP, VP, LL, LL, VP],
+    "ocm_read_rows": [CI, VP, VP, LL, LL, CI, LL, CI, VP],
     "ocm_local_copy": [CI, VP, LL, LL, LL, VP],
 }
 
@@ -168,14 +225,14 @@ def flat_arena(buf: torch.Tensor) -> torch.Tensor:
     if buf.dtype != torch.uint8 or not buf.is_contiguous():
         raise ValueError("arena must be a contiguous uint8 tensor")
     assert buf.numel() % BLOCK == 0, "arena must be BLOCK-aligned"
-    return buf.view(-1)
+    return buf if buf.dim() == 1 else buf.view(-1)
 
 
 def route(t: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensor); False: plain version (CPU)."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"no copy kernel for device {t.device}")
 
@@ -187,7 +244,10 @@ def ptr16(*ts: torch.Tensor) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of CUDA tensor ``t``'s device
+    (without building a ``torch.cuda.Stream``: a launch's host time at one
+    KV page is comparable to the kernel's, PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 # -- K1: put ----------------------------------------------------------------
@@ -215,7 +275,7 @@ def write_rows(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor
     ptr16(flat, raw)
     lib = _load()
     check(lib, lib.ocm_write_rows(
-        buf.device.index, flat.data_ptr(), raw.data_ptr(), start, nbytes,
+        buf.get_device(), flat.data_ptr(), raw.data_ptr(), start, nbytes,
         stream_of(buf)), "write_rows")
     write_rows.launches += 1
     return buf
@@ -247,12 +307,12 @@ def read_rows(buf: torch.Tensor, start: int, nbytes: int,
     if not route(buf):
         return read_rows_plain(buf, start, nbytes, out)
     if out is None:
-        out = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
+        out = flat.new_empty(nbytes)
     ptr16(flat, out)
     lib = _load()
     check(lib, lib.ocm_read_rows(
-        buf.device.index, flat.data_ptr(), out.data_ptr(), start, nbytes,
-        stream_of(buf)), "read_rows")
+        buf.get_device(), flat.data_ptr(), out.data_ptr(), start, nbytes,
+        *bulk_plan(nbytes, sm_count(buf)), stream_of(buf)), "read_rows")
     read_rows.launches += 1
     return out
 
@@ -300,7 +360,7 @@ def local_copy(buf: torch.Tensor, src_off: int, dst_off: int,
     ptr16(flat)
     lib = _load()
     check(lib, lib.ocm_local_copy(
-        buf.device.index, flat.data_ptr(), src_off, dst_off, nbytes,
+        buf.get_device(), flat.data_ptr(), src_off, dst_off, nbytes,
         stream_of(buf)), "local_copy")
     local_copy.launches += 1
     return buf

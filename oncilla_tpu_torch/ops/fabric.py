@@ -21,7 +21,9 @@ aligned offsets and size (``pallas_supported``), and no overlap for a copy
 within one row. On CUDA rows it launches the kernel: the local fast path for
 a copy within one row, else the send/recv protocol described in the CUDA
 source (``force_remote`` takes the protocol within one row too, the TPU
-kernel's loopback). On CPU rows it takes the plain version beside it
+kernel's loopback). The send is a TMA bulk copy (``dma.bulk_plan``) into
+any row; the recv wait is launched only for a row on another card, whose
+stream is not the send's. On CPU rows it takes the plain version beside it
 (slice-then-update); it never falls back to it on a CUDA row. Launches are
 counted in ``onesided_copy.launches``; plain-version calls are not.
 """
@@ -38,7 +40,7 @@ from oncilla_tpu_torch.ops.dma import CI, LL, VP, pallas_supported
 
 _SIGNATURES = {
     "ocm_onesided_local": [CI, VP, LL, LL, LL, VP],
-    "ocm_onesided_send": [CI, VP, VP, LL, VP, VP, LL, VP],
+    "ocm_onesided_send": [CI, VP, VP, LL, CI, LL, CI, VP, VP, LL, CI, VP],
     "ocm_onesided_wait": [CI, VP, LL, VP],
     "ocm_enable_peer": [CI, CI],
 }
@@ -130,10 +132,11 @@ def onesided_copy(arena: FabricRows, src_dev: int, dst_dev: int, src_off: int,
     lib = dma.library("fabric.cu", _SIGNATURES)
     if src_dev == dst_dev and not force_remote:
         dma.check(lib, lib.ocm_onesided_local(
-            src.device.index, src.data_ptr(), src_off, dst_off, nbytes,
+            src.get_device(), src.data_ptr(), src_off, dst_off, nbytes,
             dma.stream_of(src)), "onesided_copy")
     else:
-        if src.device != dst.device:
+        across = src.get_device() != dst.get_device()
+        if across:
             # The send writes into the destination row from the source's
             # stream: order it after the work already queued on that row.
             torch.cuda.current_stream(src.device).wait_stream(
@@ -141,14 +144,16 @@ def onesided_copy(arena: FabricRows, src_dev: int, dst_dev: int, src_off: int,
         seq = arena.seq[dst_dev] + 1
         flag = arena.sync[dst_dev].data_ptr() + RECV_FLAG * 8
         dma.check(lib, lib.ocm_onesided_send(
-            src.device.index, src.data_ptr() + src_off,
+            src.get_device(), src.data_ptr() + src_off,
             dst.data_ptr() + dst_off, nbytes,
+            *dma.bulk_plan(nbytes, dma.sm_count(src)),
             arena.sync[src_dev].data_ptr() + SEND_COUNT * 8, flag, seq,
-            dma.stream_of(src)), "onesided_copy send")
+            across, dma.stream_of(src)), "onesided_copy send")
         arena.seq[dst_dev] = seq
-        dma.check(lib, lib.ocm_onesided_wait(
-            dst.device.index, flag, seq, dma.stream_of(dst)),
-            "onesided_copy recv")
+        if across:
+            dma.check(lib, lib.ocm_onesided_wait(
+                dst.get_device(), flag, seq, dma.stream_of(dst)),
+                "onesided_copy recv")
     onesided_copy.launches += 1
     return arena
 
