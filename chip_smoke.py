@@ -17,10 +17,11 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    at 1 GiB, times the way callers meet them
    (``oncilla_tpu_torch/benchmarks/kernel_times``): ``ms`` from CUDA events
    over calls that rotate over 8 extents a side at one page, so the L2 is
-   cold, ``device_ms`` from ``torch.profiler`` over the same calls,
-   ``host_us`` the wrapper's issue time at 4 KiB; the plain version and one
-   PyTorch ``copy_`` on the same extents, beside the bound
-   2*nbytes / datasheet HBM rate.
+   cold (the median of 20 windows of 4 passes, ``issue_us`` the
+   host's issue time a call in them), ``device_ms`` from ``torch.profiler``
+   over the same calls, ``host_us`` the wrapper's issue time at 4 KiB; the
+   plain version and one PyTorch ``copy_`` on the same extents, beside the
+   bound 2*nbytes / datasheet HBM rate.
 4. ocm_test loop — ``ocm_init`` on a 16 GiB device arena: alloc, put, get,
    copy and free at 4 KiB .. 1 GiB on LOCAL_DEVICE and LOCAL_HOST, the copy
    matrix, scrub-on-free, the typed errors, the alloc p50; the kernels'
@@ -74,6 +75,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -268,7 +270,6 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
             0, 256, generator=gen) for _ in range(k)]
         outs = [torch.empty(n, dtype=torch.uint8, device=device) for _ in range(k)]
         # get as decode's page fetch calls it, into a tensor it holds (out=).
-        names = {"write_rows": kt.REGS, "read_rows": kt.BULK, "local_copy": kt.REGS}
         fns = {
             "write_rows": (
                 lambda i, s, d: dma.write_rows(arena, raws[i], s),
@@ -289,8 +290,11 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
         for name, (kern, plain, lib) in fns.items():
             calls = [[functools.partial(f, i, s, d) for i, (s, d) in enumerate(at)]
                      for f in (kern, plain, lib)]
-            rec = {"nbytes": n, "extents": k, "ms": kt.cold_ms(calls[0]),
-                   **_device(kt.device_ms(calls[0], names[name])), "host_us": host[name],
+            windows = kt.cold_windows(calls[0])
+            rec = {"nbytes": n, "extents": k,
+                   "ms": statistics.median(ms for ms, _ in windows),
+                   "issue_us": statistics.median(us for _, us in windows),
+                   **_device(kt.device_ms(calls[0], kt.BULK)), "host_us": host[name],
                    "plain_ms": kt.cold_ms(calls[1]), "library_ms": kt.cold_ms(calls[2]),
                    **_device(kt.device_ms(calls[2], kt.MEMCPY), "library_"),
                    "bound_ms": 2 * n / rate * 1e3}
@@ -712,7 +716,7 @@ def phase_fabric(device, row_bytes: int, sizes, rate: float,
             plain = [functools.partial(fabric.onesided_copy_plain, arena, a, b, s, d, n)
                      for s, d in at]
             lib = [functools.partial(dst[d:d + n].copy_, src[s:s + n]) for s, d in at]
-            names = kt.REGS if case == "same_row" else kt.SEND_BULK
+            names = kt.BULK if case == "same_row" else kt.SEND_BULK
             # Timed on the destination's stream, where a copy completes (a
             # send across cards first waits for that stream's earlier work).
             with torch.cuda.device(mesh[b]):
@@ -1114,7 +1118,8 @@ def main(argv=None) -> int:
                                   "library_device_ms") if k in at},
             "sizes": [{k: r.get(k) for k in (
                 "case", "nbytes", "iters", "extents", "ms", "device_ms", "device_by",
-                "host_us", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+                "host_us", "issue_us", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms")
                 if k in r} for r in timed],
         })
     missing = [e["name"] for e in line if e["launches"] == 0]

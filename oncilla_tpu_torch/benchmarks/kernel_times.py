@@ -7,8 +7,11 @@ the card's 50 MB L2, so a page is timed cold: the calls rotate over
 (source plus destination 256 MiB, above twice the L2), one at 1 GiB. Three
 numbers come from the same calls:
 
-- :func:`cold_ms`: CUDA events around back-to-back calls, the time a caller
-  sees, host issue included where the host is slower than the card;
+- :func:`cold_ms`: CUDA events around back-to-back calls, host issue
+  included where the host is slower than the card: the median of 20
+  windows (:func:`cold_windows`, which also give the host's issue time a
+  call), so one stall of the host inside a window, which a caller would
+  meet, is left out;
 - :func:`device_ms`: the device's own time a call, from ``torch.profiler``
   (or, where the profiler miscounts, from CUDA events with the host held
   out);
@@ -18,11 +21,13 @@ numbers come from the same calls:
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
 
 L2_BYTES = 50_000_000  # an H100's L2 (datasheet)
+WINDOWS = 20  # windows of back-to-back calls a cold_ms reading takes
 
 
 def rotation(nbytes: int) -> int:
@@ -32,21 +37,37 @@ def rotation(nbytes: int) -> int:
     return 1 if nbytes >= 2 * L2_BYTES else 8
 
 
-def cold_ms(calls, rounds: int = 4) -> float:
-    """Mean time a call (ms) from CUDA events around ``rounds`` passes over
-    ``calls`` (zero-argument callables, one an extent), after one warm-up
-    pass."""
+def cold_windows(calls, rounds: int = 4) -> list[tuple]:
+    """Per window of ``rounds`` passes over ``calls`` (zero-argument
+    callables, one an extent), ``WINDOWS`` windows after one warm-up pass:
+    (ms a call by CUDA events around the window, µs a call the host took to
+    issue it). The windows follow each other with no synchronise between
+    them."""
     for c in calls:
         c()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(rounds):
-        for c in calls:
-            c()
-    end.record()
+    n = rounds * len(calls)
+    marks, issue = [], []
+    for _ in range(WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(rounds):
+            for c in calls:
+                c()
+        end.record()
+        issue.append((time.perf_counter() - t0) / n * 1e6)
+        marks.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (rounds * len(calls))
+    return [(s.elapsed_time(e) / n, us) for (s, e), us in zip(marks, issue)]
+
+
+def cold_ms(calls, rounds: int = 4) -> float:
+    """Time a call (ms): the median over the windows of
+    :func:`cold_windows`. One window at a page lasts about half a
+    millisecond, so one stall of the host inside it shows as microseconds
+    a call; the median keeps such a window out."""
+    return statistics.median(ms for ms, _ in cold_windows(calls, rounds))
 
 
 def device_ms(calls, names: tuple, rounds: int = 4, tries: int = 3) -> tuple:
@@ -100,9 +121,9 @@ def device_ms(calls, names: tuple, rounds: int = 4, tries: int = 3) -> tuple:
     return start.elapsed_time(end) / n, "held events"
 
 
-# The device events of each kernel and of ``Tensor.copy_`` (a memcpy).
-BULK, REGS, MEMCPY = ("bulk_copy_kernel",), ("copy_u4",), ("Memcpy",)
-SEND_BULK = ("send_bulk_kernel",)
+# The device events of the bulk copy (K1-K3, K4 within a row), of K4's
+# send and of ``Tensor.copy_`` (a memcpy).
+BULK, SEND_BULK, MEMCPY = ("bulk_copy_kernel",), ("send_bulk_kernel",), ("Memcpy",)
 
 
 def host_us(fn, iters: int = 500) -> float:

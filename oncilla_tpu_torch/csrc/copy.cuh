@@ -1,27 +1,38 @@
 // Shared pieces of the port's copy kernels (dma.cu, fabric.cu, ceiling.cu,
-// copy_loops.cu): the 16-byte register copy loop, the TMA bulk-copy helpers
-// and the one-shot bulk copy built on them, the grid sizing, and the
-// system-scope loads, stores and clock the fabric's completion flags use.
+// copy_loops.cu): the 16-byte register copy loop of the copy loops (K7,
+// K9, K10), the TMA bulk-copy helpers and the one-shot bulk copy built on
+// them, the card's SM count, and the system-scope loads, stores and clock
+// the fabric's completion flags use.
 //
 // Each .cu that includes this file is built into a library of its own, so
 // everything here has internal linkage.
 //
-// The one-shot bulk copy (bulk_copy_cta / bulk_copy_kernel; K2's get and
-// K4's send). Bound: a copy of n bytes moves 2*n bytes of HBM traffic (n
-// read, n written), 2*n over 3.35 TB/s on an H100 SXM.
-// Design: the register body (copy_words) spends a thread's registers and
+// The one-shot bulk copy (bulk_copy_cta / bulk_copy_kernel): every one-shot
+// copy of the port runs it, K1's put, K2's get, K3's same-device copy and
+// K4 (its send and its same-row path). Bound: a copy of n bytes moves 2*n
+// bytes of HBM traffic (n read, n written), 2*n over 3.35 TB/s on an H100
+// SXM.
+// Design: a register copy (copy_words) spends a thread's registers and
 // instructions on every 16 bytes, and its stores trail its loads inside
 // each thread. Here one thread a CTA hands whole tiles to the Tensor Memory
 // Accelerator: a bulk load (cp.async.bulk) of a tile from global into a
 // slot of a shared-memory ring, whose arrival completes the slot's
 // mbarrier, then a bulk store of the slot to the destination. On an H100
-// (PERF.md) it takes 1.5 % less device time than the register body
-// at 1 GiB and 5 % less at one 16 MiB page with a cold L2, where it
-// matches Tensor.copy_; at 1 GiB it is still 3.6-5 % behind Tensor.copy_.
+// (PERF.md) it took 1.5 % less device time than a 16-byte register copy at
+// 1 GiB and 5 % less at one 16 MiB page with a cold L2; dealing the tiles
+// round robin took 0.5-0.9 % more off at 1 GiB and 2.5 % at a cold page,
+// where an L2 evict-first policy and read batches gained nothing (PERF.md,
+// the lever table). At a cold page it takes less device time than
+// Tensor.copy_; at 1 GiB it is 4.4 % behind it, though that memcpy runs on
+// the SMs too.
 //   - Grid: a persistent grid, kept under one CTA a SM (the caller's plan,
-//     ops/dma.py bulk_plan); CTA b of G takes the contiguous tiles
-//     [b*T/G, (b+1)*T/G) of the T tiles, as K6 does, so a CTA streams its
-//     own stretch of memory.
+//     ops/dma.py bulk_plan); the T tiles are dealt round robin, CTA b of G
+//     copying tiles b, b+G, b+2G, ..., so that at any moment the grid reads
+//     one window of about G tiles and writes one, as a grid-stride copy
+//     does, instead of G read fronts and G write fronts spread over the
+//     whole extent. Every tile is read once, so no CTA finds another's
+//     bytes in L2 (as K6's repeated sweeps would: K6 keeps a contiguous
+//     slice a CTA).
 //   - Tiles: at most kTileMax bytes; the last tile of a copy may be shorter
 //     (a size is a multiple of 4096, not of the tile). Sizes and addresses
 //     are multiples of 16, as cp.async.bulk requires.
@@ -34,6 +45,8 @@
 //     a slot is free once its store has read it; K8 waits for the stores
 //     to complete only because it reloads bytes it stored. The CTA ends
 //     with cp.async.bulk.wait_group 0: its stores have completed.
+//   - Source and destination do not overlap (every caller's contract), so
+//     no store lands on a byte still to be read.
 // The tile, the slots and the CTAs a SM were chosen on an H100 by
 // `python3 scripts/tune_bulk_plan.py` (PERF.md: the table of every
 // candidate at one cold 16 MiB page and at 1 GiB).
@@ -45,6 +58,7 @@
 
 namespace {
 
+// The copy loops' register body: threads a CTA, and at most CTAs a SM.
 constexpr int kThreads = 256;
 constexpr int kCtasPerSm = 8;
 // A flag wait that has not been satisfied after this long traps, so a lost
@@ -74,12 +88,6 @@ __device__ __forceinline__ void copy_words(const uint4* src, uint4* dst,
     dst[i + 3 * nt] = d;
   }
   for (; i < n; i += nt) dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(kThreads)
-copy_u4(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n) {
-  copy_words(src, dst, n, (long long)blockIdx.x * blockDim.x + threadIdx.x,
-             (long long)gridDim.x * blockDim.x);
 }
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -173,33 +181,35 @@ __device__ __forceinline__ void bulk_copy_cta(const uint8_t* src, uint8_t* dst,
                                               uint64_t* bars) {
   const long long tiles = (n + tile - 1) / tile;
   const long long G = gridDim.x, b = blockIdx.x;
-  const long long lo = b * tiles / G;
-  const long long per = (b + 1) * tiles / G - lo;  // >= 1: G <= tiles
+  const long long per = (tiles - b + G - 1) / G;  // >= 1: G <= tiles
   const long long depth = per < slots ? per : slots;
+  // The byte offset of this CTA's k-th tile.
+  auto at = [&](long long k) { return (b + k * G) * tile; };
   auto bytes = [&](long long k) {
-    const long long left = n - (lo + k) * tile;
+    const long long left = n - at(k);
     return static_cast<uint32_t>(left < tile ? left : tile);
   };
   for (int s = 0; s < depth; ++s) mbar_init(&bars[s]);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   for (long long k = 0; k < depth; ++k) {
-    load_tile(ring + k * tile, src + (lo + k) * tile, bytes(k), &bars[k]);
+    load_tile(ring + k * tile, src + at(k), bytes(k), &bars[k]);
   }
   for (long long k = 0; k < per; ++k) {
     const long long s = k % depth;
     mbar_wait(&bars[s], static_cast<uint32_t>((k / depth) & 1));
-    store_tile(dst + (lo + k) * tile, ring + s * tile, bytes(k));
+    store_tile(dst + at(k), ring + s * tile, bytes(k));
     const long long j = k - 1 + depth;  // the next load, into tile k-1's slot
     if (k >= 1 && j < per) {
       asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-      load_tile(ring + (j % depth) * tile, src + (lo + j) * tile, bytes(j),
+      load_tile(ring + (j % depth) * tile, src + at(j), bytes(j),
                 &bars[j % depth]);
     }
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// K2's kernel: the bulk copy alone. One warp a CTA, of which thread 0 works.
+// The one-shot bulk copy alone (K1-K3, K4 within a row). One warp a CTA,
+// of which thread 0 works.
 __global__ void __launch_bounds__(32)
 bulk_copy_kernel(const uint8_t* src, uint8_t* dst, long long n,
                  long long tile, int slots) {
@@ -233,24 +243,6 @@ inline int sm_count(int device) {
     cache[device] = n;
   }
   return cache[device];
-}
-
-// CTAs for a copy of n16 words: enough for the work, at most kCtasPerSm a SM.
-inline int copy_grid(int device, long long n16) {
-  const long long want = (n16 + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count(device) * kCtasPerSm;
-  return (int)(want < cap ? want : cap);
-}
-
-inline int launch_copy(int device, const void* src, void* dst, long long nbytes,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long n16 = nbytes / 16;
-  if (n16 <= 0) return (int)cudaSuccess;
-  copy_u4<<<copy_grid(device, n16), kThreads, 0, stream>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst), n16);
-  return (int)cudaGetLastError();
 }
 
 // Checks a bulk copy's plan (grid, tile, slots: ops/dma.py bulk_plan) for a

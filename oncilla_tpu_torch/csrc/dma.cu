@@ -14,21 +14,16 @@
 // dominates.
 //
 // Design: the TPU kernels handed the copy to the DMA engine as two
-// overlapped descriptors.
-//   - K2 (get) hands it to the Tensor Memory Accelerator: copy.cuh's
-//     one-shot bulk copy, tiles of up to 32 KiB bulk-loaded into a ring of
-//     shared memory and bulk-stored out of it by one thread a CTA, on a
-//     persistent grid of at most one CTA a SM. The wrapper passes the grid,
-//     the tile and the ring's slots (ops/dma.py bulk_plan); why this beats
-//     the register body, and how the three were chosen, is in copy.cuh.
-//   - K1 (put) and K3 (same-device copy) keep the register body: one
-//     grid-stride loop of 16-byte (uint4) loads and stores, four
-//     independent loads in flight per thread before their stores, byte
-//     offsets in int64 (arenas exceed 2 GiB), and a grid of 8 CTAs of 256
-//     threads per SM (capped by the work), shared with the fabric's local
-//     fast path (copy.cuh).
+// overlapped descriptors. Here all three hand it to the Tensor Memory
+// Accelerator: copy.cuh's one-shot bulk copy, tiles of up to 32 KiB
+// bulk-loaded into a ring of shared memory and bulk-stored out of it by one
+// thread a CTA, on a persistent grid of at most one CTA a SM. The wrapper
+// passes the grid, the tile and the ring's slots (ops/dma.py bulk_plan);
+// the design, and how the three were chosen, is in copy.cuh.
 // The caller guarantees 16-byte aligned pointers and a size that is a
-// multiple of 16 (offsets and sizes are 4096-byte aligned).
+// multiple of 16 (offsets and sizes are 4096-byte aligned), as the bulk
+// copy needs. K3's ranges are disjoint (the wrapper asserts it), so no
+// store lands on a byte still to be read.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream (PyTorch's current stream), does not synchronise, and
@@ -38,15 +33,19 @@
 
 extern "C" {
 
+// Each entry point is a bulk copy on `grid` CTAs in tiles of `tile` bytes
+// through a ring of `slots` tiles a CTA.
+
 // K1: arena[dst_off, dst_off+nbytes) <- rows[0, nbytes)
 int ocm_write_rows(int device, void* arena, const void* rows,
-                   long long dst_off, long long nbytes, void* stream) {
-  return launch_copy(device, rows, static_cast<uint8_t*>(arena) + dst_off,
-                     nbytes, static_cast<cudaStream_t>(stream));
+                   long long dst_off, long long nbytes, int grid,
+                   long long tile, int slots, void* stream) {
+  return launch_bulk(device, rows, static_cast<uint8_t*>(arena) + dst_off,
+                     nbytes, grid, tile, slots,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// K2: out[0, nbytes) <- arena[src_off, src_off+nbytes), a bulk copy on
-// `grid` CTAs in tiles of `tile` bytes through a ring of `slots` tiles.
+// K2: out[0, nbytes) <- arena[src_off, src_off+nbytes)
 int ocm_read_rows(int device, const void* arena, void* out,
                   long long src_off, long long nbytes, int grid,
                   long long tile, int slots, void* stream) {
@@ -57,10 +56,11 @@ int ocm_read_rows(int device, const void* arena, void* out,
 
 // K3: arena[dst_off, +nbytes) <- arena[src_off, +nbytes), ranges disjoint
 int ocm_local_copy(int device, void* arena, long long src_off,
-                   long long dst_off, long long nbytes, void* stream) {
+                   long long dst_off, long long nbytes, int grid,
+                   long long tile, int slots, void* stream) {
   uint8_t* base = static_cast<uint8_t*>(arena);
-  return launch_copy(device, base + src_off, base + dst_off, nbytes,
-                     static_cast<cudaStream_t>(stream));
+  return launch_bulk(device, base + src_off, base + dst_off, nbytes, grid,
+                     tile, slots, static_cast<cudaStream_t>(stream));
 }
 
 const char* ocm_error_string(int err) {

@@ -13,7 +13,8 @@
 // same-chip copy takes a local DMA. The controlling process here holds a
 // pointer into every row, so the counterpart is:
 //   - local fast path (source row == destination row, not force_remote):
-//     ocm_onesided_local, the same register-body kernel as K3 (copy.cuh);
+//     ocm_onesided_local, copy.cuh's one-shot bulk copy alone, K3's kernel
+//     (the extents are disjoint, as the wrapper asserts);
 //   - send (ocm_onesided_send), on the source row's device: copy.cuh's
 //     one-shot TMA bulk copy storing through the destination row's
 //     pointer, on a persistent grid of at most one CTA a SM (the wrapper's
@@ -53,9 +54,9 @@
 // a peer-mapped pointer, over NVLink. On four H100s it is byte-equal and no
 // slower than a send on the register body was from cuda:0 to cuda:1 (2.874
 // against 2.909 ms at 1 GiB, equal at one 16 MiB page; PERF.md), so every
-// send takes the bulk body. `python3 chip_smoke.py --across-cards` holds it
-// byte for byte against the plain version and times it beside that version
-// and Tensor.copy_.
+// copy of the fabric, within a row or not, takes the bulk body.
+// `python3 chip_smoke.py --across-cards` holds it byte for byte against the
+// plain version and times it beside that version and Tensor.copy_.
 //
 // Bound: 2*n bytes of HBM traffic (n read at the source, n written at the
 // destination): 2*n over the card's memory rate (3.35 TB/s on an H100
@@ -144,12 +145,14 @@ int launch_send(int device, const void* src, void* dst, long long nbytes,
 
 extern "C" {
 
-// Local fast path: row[dst_off, +nbytes) <- row[src_off, +nbytes), disjoint.
+// Local fast path: row[dst_off, +nbytes) <- row[src_off, +nbytes), disjoint,
+// by bulk copy on the plan (grid, tile, slots).
 int ocm_onesided_local(int device, void* row, long long src_off,
-                       long long dst_off, long long nbytes, void* stream) {
+                       long long dst_off, long long nbytes, int grid,
+                       long long tile, int slots, void* stream) {
   uint8_t* base = static_cast<uint8_t*>(row);
-  return launch_copy(device, base + src_off, base + dst_off, nbytes,
-                     static_cast<cudaStream_t>(stream));
+  return launch_bulk(device, base + src_off, base + dst_off, nbytes, grid,
+                     tile, slots, static_cast<cudaStream_t>(stream));
 }
 
 // Send half: dst[0, nbytes) <- src[0, nbytes) by bulk copy (the plan:

@@ -26,9 +26,8 @@ launch counters of every kernel of the port are read and reset here
 (:func:`launches`, :func:`reset_launches`). What bounds each kernel and how
 it is designed is noted in its CUDA source.
 
-K2 (and K4's send, :mod:`.fabric`) run ``csrc/copy.cuh``'s TMA bulk copy,
-whose grid, tile and ring the wrapper plans (:func:`bulk_plan`); K1 and K3
-keep the 16-byte register copy body.
+K1-K3 (and K4, :mod:`.fabric`) run ``csrc/copy.cuh``'s one-shot TMA bulk
+copy, whose grid, tile and ring the wrapper plans (:func:`bulk_plan`).
 """
 
 from __future__ import annotations
@@ -89,11 +88,12 @@ def bulk_plan(nbytes: int, sms: int) -> BulkPlan:
 
 def bulk_tiles(nbytes: int, plan: BulkPlan):
     """Yields (CTA, byte offset, bytes) of every tile the kernel copies, by
-    its formula: CTA b of G takes tiles [b*T//G, (b+1)*T//G) of the T
-    tiles, each ``plan.tile`` bytes but the last, which ends at ``nbytes``."""
+    its formula: CTA b of G takes tiles b, b+G, b+2G, ... of the T tiles
+    (dealt round robin), each ``plan.tile`` bytes but the last, which ends
+    at ``nbytes``."""
     tiles = -(-nbytes // plan.tile)
     for b in range(plan.grid):
-        for k in range(b * tiles // plan.grid, (b + 1) * tiles // plan.grid):
+        for k in range(b, tiles, plan.grid):
             off = k * plan.tile
             yield b, off, min(plan.tile, nbytes - off)
 
@@ -201,9 +201,9 @@ def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
 
 
 _SIGNATURES = {
-    "ocm_write_rows": [CI, VP, VP, LL, LL, VP],
+    "ocm_write_rows": [CI, VP, VP, LL, LL, CI, LL, CI, VP],
     "ocm_read_rows": [CI, VP, VP, LL, LL, CI, LL, CI, VP],
-    "ocm_local_copy": [CI, VP, LL, LL, LL, VP],
+    "ocm_local_copy": [CI, VP, LL, LL, LL, CI, LL, CI, VP],
 }
 
 
@@ -276,7 +276,7 @@ def write_rows(buf: torch.Tensor, raw: torch.Tensor, start: int) -> torch.Tensor
     lib = _load()
     check(lib, lib.ocm_write_rows(
         buf.get_device(), flat.data_ptr(), raw.data_ptr(), start, nbytes,
-        stream_of(buf)), "write_rows")
+        *bulk_plan(nbytes, sm_count(buf)), stream_of(buf)), "write_rows")
     write_rows.launches += 1
     return buf
 
@@ -361,7 +361,7 @@ def local_copy(buf: torch.Tensor, src_off: int, dst_off: int,
     lib = _load()
     check(lib, lib.ocm_local_copy(
         buf.get_device(), flat.data_ptr(), src_off, dst_off, nbytes,
-        stream_of(buf)), "local_copy")
+        *bulk_plan(nbytes, sm_count(buf)), stream_of(buf)), "local_copy")
     local_copy.launches += 1
     return buf
 

@@ -21,9 +21,9 @@ aligned offsets and size (``pallas_supported``), and no overlap for a copy
 within one row. On CUDA rows it launches the kernel: the local fast path for
 a copy within one row, else the send/recv protocol described in the CUDA
 source (``force_remote`` takes the protocol within one row too, the TPU
-kernel's loopback). The send is a TMA bulk copy (``dma.bulk_plan``) into
-any row; the recv wait is launched only for a row on another card, whose
-stream is not the send's. On CPU rows it takes the plain version beside it
+kernel's loopback). Both are TMA bulk copies planned by ``dma.bulk_plan``,
+the send into any row; the recv wait is launched only for a row on another
+card, whose stream is not the send's. On CPU rows it takes the plain version beside it
 (slice-then-update); it never falls back to it on a CUDA row. Launches are
 counted in ``onesided_copy.launches``; plain-version calls are not.
 """
@@ -39,7 +39,7 @@ from oncilla_tpu_torch.ops import dma
 from oncilla_tpu_torch.ops.dma import CI, LL, VP, pallas_supported
 
 _SIGNATURES = {
-    "ocm_onesided_local": [CI, VP, LL, LL, LL, VP],
+    "ocm_onesided_local": [CI, VP, LL, LL, LL, CI, LL, CI, VP],
     "ocm_onesided_send": [CI, VP, VP, LL, CI, LL, CI, VP, VP, LL, CI, VP],
     "ocm_onesided_wait": [CI, VP, LL, VP],
     "ocm_enable_peer": [CI, CI],
@@ -130,9 +130,10 @@ def onesided_copy(arena: FabricRows, src_dev: int, dst_dev: int, src_off: int,
     _check_copy(arena, src_dev, dst_dev, src_off, dst_off, nbytes)
     dma.ptr16(src, dst)
     lib = dma.library("fabric.cu", _SIGNATURES)
+    plan = dma.bulk_plan(nbytes, dma.sm_count(src))
     if src_dev == dst_dev and not force_remote:
         dma.check(lib, lib.ocm_onesided_local(
-            src.get_device(), src.data_ptr(), src_off, dst_off, nbytes,
+            src.get_device(), src.data_ptr(), src_off, dst_off, nbytes, *plan,
             dma.stream_of(src)), "onesided_copy")
     else:
         across = src.get_device() != dst.get_device()
@@ -145,8 +146,7 @@ def onesided_copy(arena: FabricRows, src_dev: int, dst_dev: int, src_off: int,
         flag = arena.sync[dst_dev].data_ptr() + RECV_FLAG * 8
         dma.check(lib, lib.ocm_onesided_send(
             src.get_device(), src.data_ptr() + src_off,
-            dst.data_ptr() + dst_off, nbytes,
-            *dma.bulk_plan(nbytes, dma.sm_count(src)),
+            dst.data_ptr() + dst_off, nbytes, *plan,
             arena.sync[src_dev].data_ptr() + SEND_COUNT * 8, flag, seq,
             across, dma.stream_of(src)), "onesided_copy send")
         arena.seq[dst_dev] = seq

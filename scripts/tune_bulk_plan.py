@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The tuning table of the bulk copy's plan (``oncilla_tpu_torch/csrc/
-copy.cuh`` bulk_copy, the body of K2's get and K4's send), on one CUDA card:
+copy.cuh`` bulk_copy, the body of every one-shot copy of the port: K1's put,
+K2's get, K3's same-device copy and K4), on one CUDA card:
 
     python3 scripts/tune_bulk_plan.py
 
@@ -8,10 +9,9 @@ K2's kernel under every candidate plan in ``CANDIDATES`` (tile, ring slots,
 CTAs a SM), each held byte for byte against ``Tensor.copy_`` at sizes that
 end on a short tile at offsets off the tile grid, then timed at one cold
 16 MiB page and at 1 GiB (``oncilla_tpu_torch.benchmarks.kernel_times``)
-beside the register body (K1 and K3's kernel) and ``Tensor.copy_``. Prints
-one JSON line a row. The plan kept in ``ops/dma.py`` (``BULK_TILE``,
-``BULK_SLOTS``, ``BULK_CTAS_PER_SM``) is the row this table picked
-(PERF.md).
+beside ``Tensor.copy_``. Prints one JSON line a row. The plan kept in
+``ops/dma.py`` (``BULK_TILE``, ``BULK_SLOTS``, ``BULK_CTAS_PER_SM``) is the
+row this table picked (PERF.md).
 """
 
 from __future__ import annotations
@@ -66,18 +66,13 @@ def tune(device=None, page: int = PAGE, big: int = GiB,
                                              stream), "tune")
         return run
 
-    def regs(s, d, n):
-        dma.check(lib, lib.ocm_local_copy(device.index, base, src0 + s, dst0 + d,
-                                          n, stream), "tune")
-
     def library(s, d, n):
         arena[dst0 + d:dst0 + d + n].copy_(arena[src0 + s:src0 + s + n])
 
     rows = [(f"bulk tile={t // KiB}KiB slots={k} ctas/SM={c}", bulk(
         lambda n, t=t, k=k, c=c: (min(-(-n // t), c * sms), t, k)), kt.BULK)
         for t, k, c in CANDIDATES]
-    rows += [("register body (K1, K3)", regs, kt.REGS),
-             ("Tensor.copy_", library, kt.MEMCPY)]
+    rows.append(("Tensor.copy_", library, kt.MEMCPY))
     out = []
     for name, run, names in rows:
         for n in check_sizes:

@@ -1,4 +1,5 @@
-"""The TMA bulk copy behind K2 (get) and K4's send, on the CPU.
+"""The TMA bulk copy behind every one-shot copy of the port (K1's put, K2's
+get, K3's same-device copy, K4's send and its local fast path), on the CPU.
 
 The kernel (``csrc/copy.cuh`` bulk_copy) runs only on the card, where
 ``chip_smoke.py`` holds it byte for byte against the plain versions. Here:
@@ -8,9 +9,9 @@ The kernel (``csrc/copy.cuh`` bulk_copy) runs only on the card, where
   each a multiple of 16 bytes and at most 32 KiB, over sizes that end on a
   short tile and over 1, 7 and 132 SMs;
 - what the wrappers hand the C entry points, through a recording stand-in
-  for the library: K2 passes the plan; K4's send passes it too, launches no
-  recv wait on one device and one on the destination's card across cards;
-  the local fast path stays on the register body;
+  for the library: K1, K2 and K3 pass the plan; K4's send and its local
+  fast path pass it too, and the send launches no recv wait on one device
+  and one on the destination's card across cards;
 - ``chip_smoke`` phase 3 and the cold-L2 rotation of the timings,
   rehearsed at tiny sizes.
 """
@@ -36,14 +37,20 @@ def test_bulk_plan_tiles_cover_the_copy_once(nbytes, sms):
     plan = dma.bulk_plan(nbytes, sms)
     assert 1 <= plan.grid <= dma.BULK_CTAS_PER_SM * sms
     assert 2 <= plan.slots <= 16 and plan.slots * plan.tile <= 227 * 1000
+    tiles = list(dma.bulk_tiles(nbytes, plan))
     ctas, ends = set(), 0
-    for cta, off, size in dma.bulk_tiles(nbytes, plan):
+    for cta, off, size in sorted(tiles, key=lambda t: t[1]):
         assert off == ends, "tiles must follow each other with no gap or overlap"
         assert 0 < size <= 32 * KiB and size % 16 == 0 and off % 16 == 0
         ctas.add(cta)
         ends = off + size
     assert ends == nbytes
     assert ctas == set(range(plan.grid)), "every CTA has at least one tile"
+    # dealt round robin: CTA b copies tiles b, b+G, b+2G, ... in that order,
+    # so the grid's k-th tiles are one window of G neighbouring tiles
+    for cta in ctas:
+        mine = [off // plan.tile for c, off, _ in tiles if c == cta]
+        assert mine == list(range(cta, -(-nbytes // plan.tile), plan.grid))
 
 
 class _Lib:
@@ -85,6 +92,29 @@ def test_get_passes_the_bulk_plan(fake_card):
     assert dma.launches()["read_rows"] == 1
 
 
+@pytest.mark.parametrize("nbytes", [BLOCK, 36 * KiB, MiB + BLOCK])
+def test_put_passes_the_bulk_plan(fake_card, nbytes):
+    buf = torch.zeros(2 * MiB, dtype=torch.uint8)
+    raw = torch.ones(nbytes, dtype=torch.uint8)
+    dma.write_rows(buf, raw, 3 * BLOCK)
+    (name, args), = fake_card.calls
+    assert name == "ocm_write_rows"
+    assert args[1:5] == (buf.data_ptr(), raw.data_ptr(), 3 * BLOCK, nbytes)
+    assert args[5:8] == tuple(dma.bulk_plan(nbytes, 132)) and args[8] == 7
+    assert dma.launches()["write_rows"] == 1
+
+
+@pytest.mark.parametrize("nbytes", [BLOCK, 36 * KiB, MiB + BLOCK])
+def test_local_copy_passes_the_bulk_plan(fake_card, nbytes):
+    buf = torch.zeros(4 * MiB, dtype=torch.uint8)
+    dma.local_copy(buf, 3 * BLOCK, 2 * MiB, nbytes)
+    (name, args), = fake_card.calls
+    assert name == "ocm_local_copy"
+    assert args[1:5] == (buf.data_ptr(), 3 * BLOCK, 2 * MiB, nbytes)
+    assert args[5:8] == tuple(dma.bulk_plan(nbytes, 132)) and args[8] == 7
+    assert dma.launches()["local_copy"] == 1
+
+
 @pytest.mark.parametrize("src,dst,force,want", [
     (0, 1, False, ["ocm_onesided_send"]),
     (1, 1, True, ["ocm_onesided_send"]),
@@ -92,8 +122,8 @@ def test_get_passes_the_bulk_plan(fake_card):
 ], ids=["cross_row", "loopback", "same_row"])
 def test_one_card_send_is_one_bulk_launch(fake_card, src, dst, force, want):
     """On one device the send is the only launch (stream order is the recv
-    wait) and takes the bulk plan; a copy within a row keeps the local
-    fast path."""
+    wait) and takes the bulk plan; a copy within a row takes the local fast
+    path, the bulk copy alone on the same plan."""
     arena = fabric.FabricRows([torch.zeros(16 * BLOCK, dtype=torch.uint8)
                                for _ in range(2)])
     fabric.onesided_copy(arena, src, dst, 0, 8 * BLOCK, 4 * BLOCK,
@@ -105,6 +135,9 @@ def test_one_card_send_is_one_bulk_launch(fake_card, src, dst, force, want):
         assert args[4:7] == tuple(dma.bulk_plan(4 * BLOCK, 132))
         assert args[9] == arena.seq[dst] == 1  # the flag rises on every send
         assert args[10] == 0  # one device: completion at device scope
+    else:
+        assert args[1:5] == (arena.rows[src].data_ptr(), 0, 8 * BLOCK, 4 * BLOCK)
+        assert args[5:8] == tuple(dma.bulk_plan(4 * BLOCK, 132)) and args[8] == 7
     assert dma.launches()["onesided_copy"] == 1
 
 
