@@ -11,9 +11,18 @@ of a warmed-up run that ends in a device synchronise):
   ``refetch=True`` — every page put and every page re-read at each page
   boundary go through the one-sided data plane (the copy kernels on CUDA).
 - ``host``: the same with pages in host DRAM (``LOCAL_HOST``).
+- ``device_fused``: paged like ``device``, a page at a time
+  (``BucketedPagedDecoder.step_page``): on CUDA one captured token step
+  (:mod:`oncilla_tpu_torch.models.graphs`) replayed for each token of the
+  page, the port's counterpart of the JAX harness's one compiled program
+  per page; the page put and the refetch run between pages, outside the
+  graph.
+- ``fused``: unpaged, one captured token step over a contiguous cache sized
+  to the run (the masked fixed-shape step of the JAX ``decode_step``),
+  replayed for every token: the counterpart of the JAX harness's one
+  compiled program per sequence.
 
-The JAX harness's ``fused`` and ``device_fused`` modes (one compiled
-program per sequence / per page) are not ported yet.
+Each fused mode captures in its warm-up run and replays in the timed run.
 
 Run: ``python -m oncilla_tpu_torch.benchmarks.kv_decode [--config tiny]``
 (CUDA by default; ``--device cpu`` for the CPU).
@@ -29,10 +38,16 @@ import torch
 
 from oncilla_tpu_torch.core.kinds import OcmKind
 from oncilla_tpu_torch.models import llama
-from oncilla_tpu_torch.models.kv_paging import BucketedPagedDecoder, page_bytes
+from oncilla_tpu_torch.models.graphs import StepGraphs
+from oncilla_tpu_torch.models.kv_paging import (
+    BucketedPagedDecoder,
+    page_bytes,
+    paged_token_step,
+)
 from oncilla_tpu_torch.utils.platform import resolve_device
 
-MODES = ("plain", "device", "host")
+# The JAX harness's order: the fused modes last.
+MODES = ("plain", "device", "host", "device_fused", "fused")
 
 
 def _sync(device: torch.device) -> None:
@@ -81,6 +96,54 @@ def bench_paged(params, cfg, tokens, ctx, kind, page_tokens,
     return _timed(run, tokens.device, tokens.shape[1], warmup)
 
 
+def bench_fused(params, cfg, tokens, warmup: int = 1) -> float:
+    """Tokens/s of unpaged decode with one captured token step replayed
+    every token, over a contiguous cache sized to the run: token i
+    attends over cache slots 0..i (masked) and writes slot i."""
+    B, n = tokens.shape
+    device = tokens.device
+    cfg = dataclasses.replace(cfg, max_seq=n)
+    graphs = StepGraphs(params, cfg)
+    i = torch.arange(n, device=device)
+    zero = torch.zeros_like(i)
+    metas = torch.stack([i, i, zero, zero], 1)[:, None, :].expand(n, B, 4)
+
+    def run():
+        k, v = llama.make_kv_cache(cfg, B, device=device)
+        empty = k[:, :, :, :0]
+        for t in range(n):
+            graphs.run(paged_token_step,
+                       (tokens[:, t], metas[t], empty, empty, k, v))
+
+    try:
+        return _timed(run, device, n, warmup)
+    finally:
+        graphs.close()
+
+
+def bench_paged_fused(params, cfg, tokens, ctx, kind, page_tokens,
+                      warmup: int = 1) -> float:
+    """Tokens/s with KV history paged through OCM handles (refetch), a
+    page at a time (``step_page``) through one captured token step."""
+    n_pages = tokens.shape[1] // page_tokens
+    graphs = StepGraphs(params, cfg)
+
+    def run():
+        dec = BucketedPagedDecoder(
+            params, cfg, ctx, batch=tokens.shape[0], page_tokens=page_tokens,
+            kind=kind, dtype=cfg.dtype, refetch=True, graphs=graphs,
+        )
+        for p in range(n_pages):
+            dec.step_page(tokens[:, p * page_tokens:(p + 1) * page_tokens])
+        _sync(tokens.device)
+        dec.close()
+
+    try:
+        return _timed(run, tokens.device, n_pages * page_tokens, warmup)
+    finally:
+        graphs.close()
+
+
 def run_modes(params, cfg, tokens, ctx, page_tokens: int,
               modes=MODES, warmup: int = 1) -> dict:
     """{mode: tokens/s} for ``params``/``tokens`` already on ``ctx``'s
@@ -93,6 +156,12 @@ def run_modes(params, cfg, tokens, ctx, page_tokens: int,
             kind = OcmKind.LOCAL_DEVICE if mode == "device" else OcmKind.LOCAL_HOST
             out[mode] = bench_paged(params, cfg, tokens, ctx, kind,
                                     page_tokens, warmup)
+        elif mode == "device_fused":
+            out[mode] = bench_paged_fused(params, cfg, tokens, ctx,
+                                          OcmKind.LOCAL_DEVICE, page_tokens,
+                                          warmup)
+        elif mode == "fused":
+            out[mode] = bench_fused(params, cfg, tokens, warmup)
         else:
             raise ValueError(f"unknown mode {mode!r}")
     return out
@@ -100,7 +169,7 @@ def run_modes(params, cfg, tokens, ctx, page_tokens: int,
 
 def run_bench(tokens_n: int = 384, page_tokens: int = 128, modes=MODES,
               config: str = "small", device=None, seed: int = 0) -> dict:
-    """Tokens/s per mode plus the paged arms' overhead against ``plain``.
+    """Tokens/s per mode plus the paged arms' overhead.
     ``config`` is "small" (``LlamaConfig()``), "tiny" or "llama3_8b"."""
     import oncilla_tpu_torch as ocm
 
@@ -127,9 +196,14 @@ def run_bench(tokens_n: int = 384, page_tokens: int = 128, modes=MODES,
         ctx.tini()
     out = {"config": config, "tokens": tokens_n, "page_tokens": page_tokens,
            "device": str(dev), "tok_s": tok_s}
-    if "plain" in tok_s:
+    # The paged arms' overhead against the fused ceiling (the per-token
+    # loop when fused was not run), as the JAX harness reports it.
+    base = "fused" if "fused" in tok_s else "plain"
+    if base in tok_s:
+        out["overhead_vs"] = base
         out["paging_overhead"] = {
-            m: tok_s["plain"] / v - 1.0 for m, v in tok_s.items() if m != "plain"
+            m: tok_s[base] / v - 1.0 for m, v in tok_s.items()
+            if m in ("device", "host", "device_fused")
         }
     return out
 

@@ -195,10 +195,7 @@ class Ocm:
             arena = self._local_arena(handle.kind, handle.device_index)
             if out is None:
                 return arena.read(handle.extent, nbytes, offset)
-            if isinstance(arena, HostArena):
-                arena.read_into(handle.extent, dst, offset)
-            else:
-                dst.copy_(arena.read(handle.extent, nbytes, offset))
+            arena.read_into(handle.extent, dst, offset)
             return out
 
     def get_as(self, handle: OcmAlloc, shape, dtype: torch.dtype,

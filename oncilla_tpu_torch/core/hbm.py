@@ -109,6 +109,18 @@ class DeviceArena:
             return dma.read_rows(self._buf, start, nbytes)
         return self._buf[start:start + nbytes].clone()
 
+    def read_into(self, extent: Extent, out: torch.Tensor,
+                  offset: int = 0) -> torch.Tensor:
+        """One-sided get into ``out`` (contiguous uint8, any device): on the
+        arena's device through ``read_rows(out=)`` when eligible, so a page
+        lands where the caller keeps it with no second copy."""
+        n = out.numel()
+        check_bounds(extent, offset, n)
+        start = extent.offset + offset
+        if out.device == self.device and self._dma_eligible(start, n):
+            return dma.read_rows(self._buf, start, n, out=out.view(-1))
+        return out.view(-1).copy_(self.read(extent, n, offset))
+
     def read_as(self, extent: Extent, shape, dtype: torch.dtype,
                 offset: int = 0) -> torch.Tensor:
         nbytes = math.prod(shape) * dtype.itemsize

@@ -168,17 +168,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def grouped_attention(q, k, v):
-    """Dense attention with unexpanded GQA K/V, fp32 scores and softmax,
-    over every key given (callers pass the slice of valid keys).
+def grouped_attention(q, k, v, mask=None):
+    """Dense attention with unexpanded GQA K/V, fp32 scores and softmax.
 
-    q: (B, H, Sq, D); k/v: (B, KV, Sk, D) with KV dividing H. Returns
-    (B, H, Sq, D) in q's dtype."""
+    q: (B, H, Sq, D); k/v: (B, KV, Sk, D) with KV dividing H. ``mask``:
+    None (every key given is attended: the sliced callers), (Sq, Sk) bool,
+    or (B, Sq, Sk) bool (each row its own validity: batched serving).
+    Masked scores are set to -1e30, as in the JAX package, not -inf: a
+    fully masked row (a bucket-padded batch row) gets a uniform softmax and
+    finite values, and a masked key among valid ones a weight of exactly 0
+    in fp32. Returns (B, H, Sq, D) in q's dtype."""
     B, H, Sq, D = q.shape
     KV = k.shape[1]
     q5 = q.reshape(B, KV, H // KV, Sq, D).float()
     scale = 1.0 / np.sqrt(D)
     s = torch.matmul(q5, k.float().unsqueeze(2).transpose(-1, -2)) * scale
+    if mask is not None:
+        m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+        s = s.masked_fill(~m, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p, v.float().unsqueeze(2))
     return o.reshape(B, H, Sq, D).to(q.dtype)
@@ -214,6 +221,19 @@ def final_logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Greedy next-token ids (B,) from logits (B, vocab)."""
     return torch.argmax(logits, dim=-1)
+
+
+def sample_token(logits: torch.Tensor, temperature: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """Next-token ids (B,) from logits (B, vocab): the argmax at
+    ``temperature`` 0, else one draw from softmax(logits / temperature)
+    taken with ``generator`` (on the logits' device). The JAX package's
+    sampler (llama.py:456) draws from ``jax.random.categorical``; its
+    stream is not reproduced, only the distribution."""
+    if temperature == 0.0:
+        return greedy(logits)
+    probs = torch.softmax(logits.float() / float(temperature), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 def decode_step(

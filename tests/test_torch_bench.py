@@ -130,7 +130,8 @@ def test_bench_rehearsal_on_the_cpu():
     sizes = [int(k) for k in d["gb_sweep"] if k.isdigit()]
     assert sorted(sizes) == [KiB << i for i in range(7)] + [1 * MiB, 2 * MiB]
     assert all(v == [None, None, None] for k, v in d["gb_sweep"].items() if k.isdigit())
-    assert set(d["kv_decode_tok_s"]) == {"plain", "device", "host"}
+    assert set(d["kv_decode_tok_s"]) == {"plain", "device", "host",
+                                         "device_fused", "fused"}
     assert d["onesided_verified"] and d["dma_rows_verified"]
     assert set(d["stage_s"]) == {"copy_legs", "ceiling", "gb_sweep", "kv_decode"}
     assert [v for _, v, _ in check.grade(out)] == ["NO DATA"] * 6

@@ -216,6 +216,8 @@ def test_fetch_pages_roundtrip_host_and_device(rng):
 def test_kv_decode_harness_on_cpu():
     out = kv_decode.run_bench(tokens_n=16, page_tokens=8, config="tiny",
                               device="cpu")
-    assert set(out["tok_s"]) == {"plain", "device", "host"}
+    assert set(out["tok_s"]) == {"plain", "device", "host", "device_fused",
+                                 "fused"}
     assert all(v > 0 for v in out["tok_s"].values())
-    assert set(out["paging_overhead"]) == {"device", "host"}
+    assert out["overhead_vs"] == "fused"
+    assert set(out["paging_overhead"]) == {"device", "host", "device_fused"}
