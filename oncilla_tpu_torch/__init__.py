@@ -8,10 +8,13 @@ and without that request they raise ``OcmDeviceError``.
 Served so far: the single-node data plane (``ocm_init`` -> ``alloc`` ->
 ``put``/``get`` -> ``copy`` -> ``free`` on LOCAL_HOST and LOCAL_DEVICE
 handles) with hand-written CUDA copy kernels for aligned transfers
-(:mod:`oncilla_tpu_torch.ops.dma`); the one-sided device fabric
+(:mod:`oncilla_tpu_torch.ops.dma`); the wire client
+(:mod:`oncilla_tpu_torch.runtime`: ``ocm_init`` with a nodefile attaches to
+a cluster of the port's own copy of the native daemon, for REMOTE_HOST and
+daemon-placed REMOTE_DEVICE handles); the one-sided device fabric
 (:mod:`oncilla_tpu_torch.ops.ici`, :mod:`oncilla_tpu_torch.parallel`, the
-kernel in :mod:`oncilla_tpu_torch.ops.fabric`) behind REMOTE_DEVICE handles
-of ``Ocm(remote=...)``; bench.py's measurement path
+kernel in :mod:`oncilla_tpu_torch.ops.fabric`) behind REMOTE_DEVICE
+handles; bench.py's measurement path
 (:mod:`oncilla_tpu_torch.benchmarks.bench`: the copy legs, the HBM ceiling
 probes with their kernels in :mod:`oncilla_tpu_torch.ops.ceiling_loops`, the
 size sweep, graded by :mod:`oncilla_tpu_torch.benchmarks.check`); Llama
@@ -40,12 +43,18 @@ from oncilla_tpu_torch.core.context import (
     ocm_tini,
 )
 from oncilla_tpu_torch.core.errors import (
+    OcmAdmissionDenied,
     OcmBoundsError,
+    OcmBusy,
     OcmConnectError,
     OcmDeviceError,
     OcmError,
     OcmInvalidHandle,
     OcmOutOfMemory,
+    OcmPlacementError,
+    OcmProtocolError,
+    OcmQuotaExceeded,
+    OcmRemoteError,
 )
 from oncilla_tpu_torch.core.handle import OcmAlloc
 from oncilla_tpu_torch.core.kinds import Fabric, OcmKind
@@ -58,8 +67,10 @@ __all__ = [
     "Extent",
     "Fabric",
     "Ocm",
+    "OcmAdmissionDenied",
     "OcmAlloc",
     "OcmBoundsError",
+    "OcmBusy",
     "OcmConfig",
     "OcmConnectError",
     "OcmDeviceError",
@@ -67,6 +78,10 @@ __all__ = [
     "OcmInvalidHandle",
     "OcmKind",
     "OcmOutOfMemory",
+    "OcmPlacementError",
+    "OcmProtocolError",
+    "OcmQuotaExceeded",
+    "OcmRemoteError",
     "RemoteBackend",
     "ocm_alloc",
     "ocm_alloc_kind",

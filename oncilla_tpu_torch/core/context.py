@@ -5,11 +5,14 @@ Analogue of libocm (reference src/lib.c + inc/oncillamem.h) and of
 :class:`Ocm`; handles are :class:`OcmAlloc`; ``copy`` composes the
 kind x kind matrix with a same-device fast path. LOCAL_HOST lives in a host
 arena (pinned when the device is CUDA), LOCAL_DEVICE in the device arena.
-Remote arms go to the :class:`RemoteBackend` the context was given (the
-daemon client, or a stand-in that books extents itself); without one they
-raise ``OcmConnectError``, as the JAX package does in single-node mode. A
-copy between two REMOTE_DEVICE handles rides the backend's ``ici_plane``
-(the one-sided fabric) when it has one, never the host.
+Remote arms go to the :class:`RemoteBackend` the context was given, or that
+``ocm_init`` attached through a nodefile (the daemon client,
+:class:`~oncilla_tpu_torch.runtime.client.ControlPlaneClient`); without one
+they raise ``OcmConnectError``, as the JAX package does in single-node mode.
+Handles a daemon placed (``daemon_owned``, single-node demotions to a
+LOCAL kind included) route every op to the backend, never to the context's
+own arenas. A copy between two REMOTE_DEVICE handles rides the backend's
+``ici_plane`` (the one-sided fabric) when it has one, never the host.
 
 Device arms take and return torch tensors on the context's device; host
 arms return CPU tensors.
@@ -24,6 +27,7 @@ from typing import Protocol
 
 import torch
 
+from oncilla_tpu_torch.core.arena import Extent, check_bounds
 from oncilla_tpu_torch.core.errors import OcmConnectError, OcmInvalidHandle
 from oncilla_tpu_torch.core.handle import OcmAlloc
 from oncilla_tpu_torch.core.hbm import DeviceArena, from_bytes
@@ -41,12 +45,14 @@ class RemoteBackend(Protocol):
     returns, ``put``/``get`` involve no remote application code (the
     reference's data plane bypasses the daemon per transfer). A backend
     whose handles live on a device fabric also carries it as
-    ``ici_plane``."""
+    ``ici_plane``. ``get_into`` lands a host-kind handle's bytes in the
+    caller's buffer (the registered-receive idiom) and returns it."""
 
     def alloc(self, nbytes: int, kind: OcmKind) -> OcmAlloc: ...
     def free(self, handle: OcmAlloc) -> None: ...
     def put(self, handle: OcmAlloc, data, offset: int) -> None: ...
     def get(self, handle: OcmAlloc, nbytes: int, offset: int): ...
+    def get_into(self, handle: OcmAlloc, out, offset: int): ...
 
 
 class Ocm:
@@ -59,11 +65,6 @@ class Ocm:
                  remote: RemoteBackend | None = None, device=None):
         self.config = config or OcmConfig()
         self._remote = remote
-        if self.config.nodefile or self.config.rank is not None:
-            raise OcmConnectError(
-                "a nodefile/rank names a control plane, which this package "
-                "does not have yet (single-node local arms only)"
-            )
         self.device = resolve_device(device)
         self.host_arena = HostArena(
             self.config.host_arena_bytes, self.config.alignment,
@@ -76,6 +77,13 @@ class Ocm:
         # Odd local ids, as in the JAX package (daemon ids are even).
         self._next_id = itertools.count(1, 2)
         self._allocs: dict[int, OcmAlloc] = {}
+        # App-side staging windows of remote handles (the reference's
+        # malloc'd local arm, lib.c:255), made on first request and
+        # released by free.
+        self._stagebufs: dict[int, torch.Tensor] = {}
+        # True only when ocm_init created the backend (tini then closes
+        # it); an injected backend stays the caller's.
+        self._owns_remote = False
         self._lock = threading.Lock()
         self.tracer = GLOBAL_TRACER
 
@@ -88,7 +96,8 @@ class Ocm:
         self.tini()
 
     def tini(self) -> None:
-        """Free every live handle (``ocm_tini``, lib.c:160)."""
+        """Free every live handle and, when ``ocm_init`` attached the
+        backend, detach from the daemon (``ocm_tini``, lib.c:160)."""
         with self._lock:
             handles = list(self._allocs.values())
         for h in handles:
@@ -96,6 +105,9 @@ class Ocm:
                 self.free(h)
             except OcmInvalidHandle:
                 pass
+        if self._owns_remote:
+            self._owns_remote = False
+            self._remote.close()
 
     # -- alloc / free ----------------------------------------------------
 
@@ -118,8 +130,21 @@ class Ocm:
         return self._remote
 
     def alloc(self, nbytes: int, kind: OcmKind = OcmKind.LOCAL_HOST,
-              device_index: int = 0) -> OcmAlloc:
-        """``ocm_alloc`` (reference src/lib.c:175)."""
+              device_index: int = 0,
+              local_nbytes: int | None = None) -> OcmAlloc:
+        """``ocm_alloc`` (reference src/lib.c:175). ``local_nbytes``
+        (remote kinds only) sizes the app-side staging window smaller than
+        the remote region, the reference's ``local_alloc_bytes`` idiom
+        (reference test/ocm_test.c:35-47): ``push``/``pull`` then move
+        window-sized pieces at explicit remote offsets."""
+        if local_nbytes is not None:
+            if kind in _LOCAL_KINDS:
+                raise OcmInvalidHandle(
+                    "local_nbytes applies to remote kinds (local arms have "
+                    "no staging window)")
+            if not 0 < local_nbytes <= nbytes:
+                raise OcmInvalidHandle(
+                    f"local_nbytes {local_nbytes} must be in (0, {nbytes}]")
         with self.tracer.span("alloc"):
             if kind in _LOCAL_KINDS:
                 di = 0 if kind == OcmKind.LOCAL_HOST else device_index
@@ -131,6 +156,7 @@ class Ocm:
                 )
             else:
                 h = self._remote_or_raise(kind).alloc(nbytes, kind)
+                h.local_nbytes = local_nbytes
             with self._lock:
                 self._allocs[h.alloc_id] = h
             printd("alloc id=%d kind=%s nbytes=%d", h.alloc_id, kind, nbytes)
@@ -144,11 +170,13 @@ class Ocm:
             if handle.freed or handle.alloc_id not in self._allocs:
                 raise OcmInvalidHandle(f"double free of alloc {handle.alloc_id}")
             del self._allocs[handle.alloc_id]
-        if handle.kind in _LOCAL_KINDS:
+            self._stagebufs.pop(handle.alloc_id, None)
+        if self._on_backend(handle):
+            # Demoted handles too: the daemon registered the extent.
+            self._remote_or_raise(handle.kind).free(handle)
+        else:
             self._local_arena(handle.kind, handle.device_index).free(
                 handle.extent)
-        else:
-            self._remote_or_raise(handle.kind).free(handle)
         handle.freed = True
 
     # -- one-sided ops ---------------------------------------------------
@@ -157,17 +185,24 @@ class Ocm:
         if handle.freed:
             raise OcmInvalidHandle(f"use of freed alloc {handle.alloc_id}")
 
+    @staticmethod
+    def _on_backend(handle: OcmAlloc) -> bool:
+        """Whether the handle's bytes are the backend's: every remote kind,
+        and a daemon-placed handle demoted to a local kind (its offset is
+        an address in the daemon's arena, not in this context's)."""
+        return handle.daemon_owned or handle.kind not in _LOCAL_KINDS
+
     def put(self, handle: OcmAlloc, data, offset: int = 0) -> None:
         """One-sided write (``ocm_copy_onesided`` op_flag=1, lib.c:670)."""
         self._check_live(handle)
         raw = as_byte_tensor(data)
         with self.tracer.span("put", nbytes=raw.numel()):
-            if handle.kind in _LOCAL_KINDS:
+            if self._on_backend(handle):
+                self._remote_or_raise(handle.kind).put(handle, raw, offset)
+            else:
                 self._local_arena(handle.kind, handle.device_index).write(
                     handle.extent, raw, offset
                 )
-            else:
-                self._remote_or_raise(handle.kind).put(handle, raw, offset)
 
     def get(self, handle: OcmAlloc, nbytes: int | None = None, offset: int = 0,
             out: torch.Tensor | None = None) -> torch.Tensor:
@@ -177,7 +212,9 @@ class Ocm:
         ``out`` (a contiguous uint8 tensor, or numpy array, sized to the
         read) is the registered-receive-buffer idiom: the bytes land in the
         caller's buffer, which is returned. A pinned ``out`` reused across
-        gets saves a fresh destination (and its page faults) per read."""
+        gets saves a fresh destination (and its page faults) per read; on a
+        REMOTE_HOST handle ``out`` goes to the backend's ``get_into``, and a
+        host ``out`` is where the wire's stripes land."""
         self._check_live(handle)
         if out is not None:
             dst = as_byte_tensor(out)
@@ -185,9 +222,13 @@ class Ocm:
         elif nbytes is None:
             nbytes = handle.nbytes - offset
         with self.tracer.span("get", nbytes=nbytes):
-            if handle.kind not in _LOCAL_KINDS:
-                got = self._remote_or_raise(handle.kind).get(
-                    handle, nbytes, offset)
+            if self._on_backend(handle):
+                backend = self._remote_or_raise(handle.kind)
+                if out is not None and handle.kind in (OcmKind.REMOTE_HOST,
+                                                       OcmKind.LOCAL_HOST):
+                    backend.get_into(handle, dst, offset)
+                    return out
+                got = as_byte_tensor(backend.get(handle, nbytes, offset))
                 if out is None:
                     return got
                 dst.copy_(got)
@@ -204,21 +245,85 @@ class Ocm:
         nbytes = math.prod(shape) * dtype.itemsize
         return from_bytes(self.get(handle, nbytes, offset), shape, dtype)
 
-    def localbuf(self, handle: OcmAlloc) -> torch.Tensor:
-        """``ocm_localbuf`` (reference src/lib.c:425-460): a zero-copy
-        view for LOCAL_HOST, a materialised copy for LOCAL_DEVICE. Remote
-        kinds' staging windows are not ported."""
+    def localbuf(self, handle: OcmAlloc,
+                 nbytes: int | None = None) -> torch.Tensor:
+        """``ocm_localbuf`` (reference src/lib.c:425-460): the app-side
+        window onto an allocation. A zero-copy view for LOCAL_HOST, a
+        materialised copy for LOCAL_DEVICE. For a remote (or daemon-owned)
+        handle, a host staging tensor made on first request, kept per
+        handle and released by ``free``: mutate it in place, then
+        ``push``/``pull`` (or ``ocm_copy_onesided`` with ``local=None``).
+
+        ``nbytes`` sizes the window smaller than the remote region while
+        the window does not exist yet (the ``alloc(local_nbytes=)``
+        idiom)."""
         self._check_live(handle)
-        if handle.kind not in _LOCAL_KINDS:
-            self._remote_or_raise(handle.kind)
-            raise OcmInvalidHandle(
-                f"ocm_localbuf of a {handle.kind} handle: staging windows "
-                "are not ported; use get")
-        if handle.kind == OcmKind.LOCAL_HOST:
-            return self.host_arena.view(handle.extent)
-        return self.device_arenas[handle.device_index].read(
-            handle.extent, handle.nbytes
-        )
+        if nbytes is not None:
+            if not self._on_backend(handle):
+                raise OcmInvalidHandle(
+                    "a sized staging window applies to remote kinds only")
+            if not 0 < nbytes <= handle.nbytes:
+                raise OcmInvalidHandle(
+                    f"window {nbytes} must be in (0, {handle.nbytes}]")
+            with self._lock:
+                existing = self._stagebufs.get(handle.alloc_id)
+                if existing is not None and existing.numel() != nbytes:
+                    raise OcmInvalidHandle(
+                        f"staging window already created at "
+                        f"{existing.numel()} B; cannot resize to {nbytes}")
+                handle.local_nbytes = nbytes
+        if not self._on_backend(handle):
+            if handle.kind == OcmKind.LOCAL_HOST:
+                return self.host_arena.view(handle.extent)
+            return self.device_arenas[handle.device_index].read(
+                handle.extent, handle.nbytes)
+        self._remote_or_raise(handle.kind)  # a window onto no backend
+        with self._lock:
+            # Re-checked under the lock: a free racing in between must not
+            # leave a window cached for a dead id.
+            if handle.alloc_id not in self._allocs:
+                raise OcmInvalidHandle(
+                    f"alloc {handle.alloc_id} freed during localbuf")
+            buf = self._stagebufs.get(handle.alloc_id)
+            if buf is None:
+                window = handle.local_nbytes or handle.nbytes
+                buf = torch.zeros(window, dtype=torch.uint8)
+                self._stagebufs[handle.alloc_id] = buf
+        return buf
+
+    def _staging_range(self, handle: OcmAlloc, nbytes: int | None,
+                       offset: int, local_offset: int | None) -> tuple:
+        """(n, local_offset) of a push/pull, bounds-checked against both
+        the staging window and the remote region. A full-size window
+        mirrors the region (local_offset = offset); a smaller one defaults
+        to local_offset 0."""
+        if not self._on_backend(handle):
+            raise OcmInvalidHandle("push/pull is for remote-kind handles")
+        window = handle.local_nbytes or handle.nbytes
+        if local_offset is None:
+            local_offset = offset if window == handle.nbytes else 0
+        if nbytes is None:
+            n = min(window - local_offset, handle.nbytes - offset)
+        else:
+            n = nbytes
+        check_bounds(Extent(0, window), local_offset, n)
+        check_bounds(Extent(0, handle.nbytes), offset, n)
+        return n, local_offset
+
+    def push(self, handle: OcmAlloc, nbytes: int | None = None,
+             offset: int = 0, local_offset: int | None = None) -> None:
+        """One-sided write of the staging window into a remote allocation
+        (``offset`` addresses the region, ``local_offset`` the window)."""
+        n, lo = self._staging_range(handle, nbytes, offset, local_offset)
+        buf = self.localbuf(handle)
+        self.put(handle, buf[lo:lo + n], offset)
+
+    def pull(self, handle: OcmAlloc, nbytes: int | None = None,
+             offset: int = 0, local_offset: int | None = None) -> None:
+        """One-sided read of a remote allocation into the staging window."""
+        n, lo = self._staging_range(handle, nbytes, offset, local_offset)
+        buf = self.localbuf(handle)
+        buf[lo:lo + n].copy_(self.get(handle, n, offset))
 
     # -- two-sided copy matrix ------------------------------------------
 
@@ -238,6 +343,7 @@ class Ocm:
                 src.kind == OcmKind.LOCAL_DEVICE
                 and dst.kind == OcmKind.LOCAL_DEVICE
                 and src.device_index == dst.device_index
+                and not (src.daemon_owned or dst.daemon_owned)
             ):
                 self.device_arenas[src.device_index].move(
                     src.extent, dst.extent, nbytes, src_offset, dst_offset
@@ -254,6 +360,13 @@ class Ocm:
                     return
             data = self.get(src, nbytes, src_offset)
             self.put(dst, data, dst_offset)
+
+    def status(self, rank: int | None = None) -> dict:
+        """A daemon's live STATUS (rank, nnodes, live_allocs, bytes live).
+        On rank 0 ``nnodes`` is the joined count: poll it before relying
+        on remote placement (a still-joining cluster demotes remote
+        requests, reference src/alloc.c:82-83)."""
+        return self._remote_or_raise("status").status(rank)
 
     @staticmethod
     def is_remote(handle: OcmAlloc) -> bool:
@@ -276,12 +389,45 @@ class Ocm:
 # Module-level functional API, name-for-name with inc/oncillamem.h:69-89.
 # ---------------------------------------------------------------------------
 
-def ocm_init(config: OcmConfig | None = None, device=None) -> Ocm:
+def ocm_init(config: OcmConfig | None = None, device=None, *,
+             ici_plane=None) -> Ocm:
     """``ocm_init`` (reference src/lib.c:98-132). Runs on CUDA unless
     ``device="cpu"``; raises ``OcmDeviceError`` when CUDA is absent and no
-    CPU was asked for. It has no wire client yet, so it serves the local
-    kinds only (``Ocm(config, remote=...)`` takes a backend directly)."""
-    return Ocm(config=config, device=device)
+    CPU was asked for. When the config names a nodefile (or
+    ``OCM_NODEFILE`` is set) it attaches to the app's daemon, the
+    reference's CONNECT handshake: the rank comes from ``config.rank`` or
+    is detected from the nodefile. ``ici_plane`` (an ``SpmdIciPlane``)
+    serves the REMOTE_DEVICE arm. A daemon that does not answer raises
+    ``OcmConnectError``; nothing falls back to a single-node context, and a
+    ``rank`` without a nodefile raises it too. (``Ocm(config, remote=...)``
+    takes a backend the caller made and keeps.)
+    """
+    config = config or OcmConfig()
+    dev = resolve_device(device)
+    if not config.nodefile:
+        if config.rank is not None:
+            # A rank names a place in a cluster that nothing here locates.
+            raise OcmConnectError(
+                f"rank {config.rank} given without a nodefile (set "
+                "OcmConfig.nodefile or OCM_NODEFILE)")
+        return Ocm(config=config, device=dev)
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+    from oncilla_tpu_torch.runtime.membership import detect_rank, parse_nodefile
+
+    entries = parse_nodefile(config.nodefile)
+    rank = config.rank if config.rank is not None else detect_rank(entries)
+    if not 0 <= rank < len(entries):
+        raise OcmConnectError(
+            f"rank {rank} out of range for the {len(entries)}-node nodefile")
+    remote = ControlPlaneClient(entries, rank, config=config,
+                                ici_plane=ici_plane)
+    try:
+        ctx = Ocm(config=config, remote=remote, device=dev)
+    except BaseException:
+        remote.close()
+        raise
+    ctx._owns_remote = True
+    return ctx
 
 
 def ocm_tini(ctx: Ocm) -> None:
@@ -296,8 +442,8 @@ def ocm_free(ctx: Ocm, handle: OcmAlloc) -> None:
     ctx.free(handle)
 
 
-def ocm_localbuf(ctx: Ocm, handle: OcmAlloc):
-    return ctx.localbuf(handle)
+def ocm_localbuf(ctx: Ocm, handle: OcmAlloc, nbytes: int | None = None):
+    return ctx.localbuf(handle, nbytes)
 
 
 def ocm_is_remote(handle: OcmAlloc) -> bool:
@@ -320,11 +466,24 @@ def ocm_copy_onesided(ctx: Ocm, handle: OcmAlloc, local=None,
                       op: str = "write", offset: int = 0):
     """``ocm_copy_onesided`` (reference src/lib.c:670): "write" puts
     ``local`` into the allocation; "read" returns ``len(local)`` bytes (the
-    rest of the allocation when ``local`` is None)."""
+    rest of the allocation when ``local`` is None). With ``local=None`` on
+    a remote (or daemon-owned) handle, the op moves the handle's staging
+    window (``ctx.localbuf``), as the reference's one-sided ops use the
+    handle's own local arm."""
+    staged = local is None and (handle.is_remote or handle.daemon_owned)
     if op == "write":
-        ctx.put(handle, local, offset)
+        if staged:
+            ctx.push(handle, offset=offset)
+        else:
+            ctx.put(handle, local, offset)
         return None
     if op == "read":
+        if staged:
+            ctx.pull(handle, offset=offset)
+            # Element 0 is the byte at ``offset``; a smaller window took the
+            # pull at its position 0, so the whole window is that view.
+            buf = ctx.localbuf(handle)
+            return buf[offset:] if buf.numel() == handle.nbytes else buf
         n = as_byte_tensor(local).numel() if local is not None else None
         return ctx.get(handle, n, offset)
     raise ValueError(f"op must be 'read' or 'write', got {op!r}")

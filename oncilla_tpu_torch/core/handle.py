@@ -24,6 +24,8 @@ class OcmAlloc:
       device_index: owning GPU's index on that node (device arms only).
       extent:       (offset, nbytes) inside the owning arena.
       origin_rank:  rank of the node that requested the allocation.
+      owner_addr, local_nbytes, daemon_owned: as in the JAX package
+                    (``oncilla_tpu/core/handle.py:48-61``).
     """
 
     alloc_id: int
@@ -35,6 +37,17 @@ class OcmAlloc:
     extent: Extent
     origin_rank: int
     freed: bool = field(default=False, compare=False)
+    # (host, port) of the owner daemon, from the ALLOC_RESULT reply: where
+    # the client sends the handle's DATA_PUT/DATA_GET.
+    owner_addr: tuple[str, int] | None = field(default=None, compare=False)
+    # App-side staging-window size of a remote handle when smaller than
+    # the remote region (``alloc(local_nbytes=)``); None = ``nbytes``.
+    local_nbytes: int | None = field(default=None, compare=False)
+    # True when a daemon placed and registered the allocation, a
+    # single-node DEMOTED one (kind LOCAL_*) included: the daemon owns the
+    # bytes, so every data op and the free go through the client, never
+    # through the context's own arenas.
+    daemon_owned: bool = field(default=False, compare=False)
 
     @property
     def is_remote(self) -> bool:

@@ -170,6 +170,10 @@ class SpmdIciPlane:
             )
         return g
 
+    def device_of(self, handle: OcmAlloc) -> torch.device:
+        """The device of the row ``handle`` addresses."""
+        return self.arena.rows[self._gdev(handle)].device
+
     def put(self, handle: OcmAlloc, data, offset: int = 0) -> None:
         raw = as_byte_tensor(data)
         check_bounds(handle.extent, offset, raw.numel())

@@ -37,8 +37,10 @@ through the :class:`~.prefix.PrefixCache`.
 
 Knobs, as in the JAX package: ``OCM_SERVE_PREFETCH`` (workers),
 ``OCM_STEP_BUDGET_MS``, ``OCM_SERVING_BATCH``, ``OCM_SERVING_MAX_BATCH``.
-Not ported: the AsyncOcm prefetch leg (waits for the wire client) and the
-FROZEN tier's warm boot (waits for the disk store).
+A COLD tier on a remote host is read by the prefetch workers over the
+wire, from their own threads (the daemon client is thread-safe). Not
+ported: the AsyncOcm/mux prefetch leg and the FROZEN tier's warm boot
+(waits for the disk store).
 """
 
 from __future__ import annotations
@@ -98,8 +100,9 @@ class Prefetcher:
     """Fetch off-card page bytes ahead of schedule into reusable pinned
     host buffers, on a pool of worker threads (``workers == 0``: off, every
     miss is a synchronous fault). Threads only: the JAX package's AsyncOcm
-    leg for a remote cold tier waits for the wire client. Workers touch
-    host memory only (:meth:`TieredPageStore.fetch_bytes`); a buffer goes
+    leg is not ported; a worker reads a remote COLD page through the
+    daemon client on its own thread. Workers touch host memory only
+    (:meth:`TieredPageStore.fetch_bytes`); a buffer goes
     back to the pool with an event recorded after its upload, and is not
     handed out again before that event."""
 

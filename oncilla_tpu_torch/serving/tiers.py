@@ -11,11 +11,16 @@ Fixed-size KV pages live in exactly one tier:
   (``OcmOutOfMemory`` and the other ``OcmError`` s of an arena), never a
   catch of a CUDA or kernel error, which propagates.
 - ``WARM`` — the context's host arena (LOCAL_HOST, pinned on CUDA).
-- ``COLD`` — a ``cold_backend`` (a REMOTE_HOST client, which waits for
-  the port's wire client) or, without one, a LOCAL_HOST stand-in flagged
-  ``cold_sim`` so a measurement can never mistake it for a remote tier.
+- ``COLD`` — a ``cold_backend``: a daemon client
+  (:class:`~oncilla_tpu_torch.runtime.client.ControlPlaneClient`) whose
+  REMOTE_HOST pages live in another host's arena. A page leaves the card
+  by a ``put`` of the device tensor and comes back into a pinned host
+  buffer (the client's ``get_into``, the wire's stripes landing in it)
+  before it is uploaded. Without a backend, COLD is a LOCAL_HOST stand-in
+  flagged ``cold_sim`` so a measurement can never mistake it for a remote
+  tier.
 - ``FROZEN`` — disk: zero capacity here (the JAX package's store without
-  a ``frozen_backend``); the disk store waits for the wire client's slice.
+  a ``frozen_backend``); the disk store waits for a later slice.
 
 Page bytes are ``uint8`` tensors and stay where their tier is: a HOT page
 read lands on the card (``get(out=)`` into a device tensor, K2), a WARM or
@@ -169,9 +174,13 @@ class TieredPageStore:
         receive path), else in a fresh tensor on the tier's side."""
         self._count(tier, "get")
         if tier == Tier.COLD and self.cold_backend is not None:
-            got = as_byte_tensor(self.cold_backend.get(handle, nbytes, 0))
+            if out is not None:
+                # The registered receive path: the page lands in ``out``.
+                got = self.cold_backend.get_into(handle, out[:nbytes], 0)
+            else:
+                got = as_byte_tensor(self.cold_backend.get(handle, nbytes, 0))
             self.stats.note_remote(nbytes, inbound=True)
-            return got if out is None else out[:nbytes].copy_(got)
+            return got
         if out is not None:
             return self.ctx.get(handle, out=out[:nbytes])
         return self.ctx.get(handle, nbytes, 0)

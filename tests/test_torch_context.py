@@ -374,8 +374,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert ctx.device_arenas[0].buffer.device.type == "cpu"
 
 
-def test_control_plane_config_raises():
+def test_control_plane_config_raises(tmp_path):
+    """A nodefile that is not there raises what the JAX package raises for
+    it (``open``'s FileNotFoundError); one that names no live daemon raises
+    ``OcmConnectError`` once the connect ladder has run out."""
+    from oncilla_tpu_torch.runtime.cluster import free_ports
+
+    kw = dict(host_arena_bytes=1 << 20, device_arena_bytes=1 << 20)
+    missing = str(tmp_path / "nodes.txt")
+    raised = []
+    for init in (lambda: jocm.ocm_init(jocm.OcmConfig(nodefile=missing, **kw)),
+                 lambda: tocm.ocm_init(tocm.OcmConfig(nodefile=missing, **kw),
+                                       device="cpu")):
+        with pytest.raises(OSError) as ei:
+            init()
+        raised.append(type(ei.value))
+    assert raised == [FileNotFoundError, FileNotFoundError]
+    dead = tmp_path / "dead"
+    dead.write_text("".join(f"{r} 127.0.0.1 {p}\n"
+                            for r, p in enumerate(free_ports(2))))
     with pytest.raises(tocm.OcmConnectError):
-        tocm.ocm_init(tocm.OcmConfig(host_arena_bytes=1 << 20,
-                                     device_arena_bytes=1 << 20,
-                                     nodefile="nodes.txt"), device="cpu")
+        tocm.ocm_init(tocm.OcmConfig(nodefile=str(dead), rank=0,
+                                     connect_retries=1, connect_backoff_s=0.01,
+                                     **kw), device="cpu")

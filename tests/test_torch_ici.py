@@ -10,13 +10,16 @@
   cases of tests/test_ici.py:138-221, bounds and range errors, the 2 GiB row
   error, a chunked ``IciDataPlane.copy``.
 - (d) ``Ocm(remote=backend).copy`` between REMOTE_DEVICE handles rides the
-  backend's ``ici_plane`` with no get (``chip_smoke.BookingBackend``).
+  backend's ``ici_plane`` with no get (``BookingBackend``, a stand-in that
+  books extents itself; the daemon-placed handles are
+  tests/test_torch_client.py's and test_torch_native_daemon.py's).
 - (g) Without CUDA the fabric's entry points raise unless the CPU is named.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` (phase 6).
 """
 
+import itertools
 import sys
 import threading
 from types import SimpleNamespace
@@ -28,7 +31,6 @@ import torch
 
 import oncilla_tpu as jocm
 import oncilla_tpu_torch as tocm
-from chip_smoke import BookingBackend
 from oncilla_tpu.core.arena import Extent as JExtent
 from oncilla_tpu.core.handle import OcmAlloc as JAlloc
 from oncilla_tpu.ops import ici as jici
@@ -403,6 +405,50 @@ def test_ici_data_plane_chunked_copy_matches_jax(rng, monkeypatch):
 
 
 # -- (d) Ocm(remote=...) ------------------------------------------------------
+
+
+class BookingBackend:
+    """Stands in for the daemon behind ``Ocm(remote=...)``: books
+    REMOTE_DEVICE extents on the rows of an ``SpmdIciPlane`` (one
+    ``ArenaAllocator`` a row, rows taken in turn, so no two live extents
+    overlap), scrubs each at alloc as the daemon client does, serves
+    put/get from the plane, and carries it as ``ici_plane`` so that
+    ``Ocm.copy`` between two of its handles rides the one-sided fabric."""
+
+    def __init__(self, plane, alignment: int = 4096):
+        from oncilla_tpu_torch.core.arena import ArenaAllocator
+
+        self.ici_plane = plane
+        self._books = [ArenaAllocator(plane.config.device_arena_bytes, alignment)
+                       for _ in plane.mesh]
+        self._rows = itertools.cycle(range(len(self._books)))
+        self._ids = itertools.count(2, 2)  # even ids, as the daemon's
+
+    def _row(self, handle) -> int:
+        return handle.rank * self.ici_plane.devices_per_rank + handle.device_index
+
+    def alloc(self, nbytes: int, kind):
+        if kind != tocm.OcmKind.REMOTE_DEVICE:
+            raise tocm.OcmConnectError(
+                f"this backend books REMOTE_DEVICE only, not {kind}")
+        g = next(self._rows)
+        dpr = self.ici_plane.devices_per_rank
+        h = tocm.OcmAlloc(
+            alloc_id=next(self._ids), kind=kind, fabric=tocm.Fabric.ICI,
+            nbytes=nbytes, rank=g // dpr, device_index=g % dpr,
+            extent=self._books[g].alloc(nbytes), origin_rank=0,
+        )
+        self.ici_plane.scrub(h)
+        return h
+
+    def free(self, handle) -> None:
+        self._books[self._row(handle)].free(handle.extent)
+
+    def put(self, handle, data, offset: int) -> None:
+        self.ici_plane.put(handle, data, offset)
+
+    def get(self, handle, nbytes: int, offset: int):
+        return self.ici_plane.get(handle, nbytes, offset)
 
 
 class _JaxBooking(BookingBackend):

@@ -512,6 +512,9 @@ class _RecordingBackend:
         out.copy_(self.blobs[handle.alloc_id][offset:offset + out.numel()])
         return out
 
+    def get_into(self, handle, out, offset=0):
+        return self.get(handle, out.numel(), offset, out=out)
+
 
 def test_fetch_pages_reuses_registered_buffer(tiny_model):
     cfg = tiny_model[2]
