@@ -72,10 +72,12 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    for byte against their plain versions; then ``ceiling_probe()`` at its
    defaults and the port's ``benchmarks/bench.run`` (copy legs, ceiling,
    gb_sweep over a 2 GiB + 256 MiB arena up to 1 GiB with the amortized
-   leg, kv_decode), their JSON lines and the grader's rows
+   leg, the mfu legs, kv_decode), their JSON lines and the grader's rows
    (``benchmarks/check``); every ceiling leg must be measured, rows 1-3
-   must not read NO DATA and row 5 (device_fused against plain) must be
-   graded.
+   must not read NO DATA, rows 4 (mfu_train) and 5 (device_fused against
+   plain) must be graded, ``detail.mfu`` and ``detail.mfu_train`` must be
+   above 0 with a train variant measured (all eight of
+   ``benchmarks/mfu.train_variants``).
 8. wire — the daemon client (``oncilla_tpu_torch.runtime``), run after
    phase 5b while the weights are on the card: two daemons of the port's
    own copy of the native daemon (built with the C++ compiler, one compile
@@ -103,6 +105,24 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    card ``copy_``, alloc/free p50 through the daemons, and F's and G's
    tokens/s beside E's and C's.
 
+9. train — last, with nothing of the earlier phases on the card: the JAX
+   package's training flagship (``benchmarks/mfu.train_sized_config``:
+   1.1B parameters, bf16, all 16 layers, batch 4 of 1024 tokens, ids drawn
+   from a Zipf law). (a) 8 steps of ``models/train.make_train_step`` with
+   ``adamw(3e-4, 0.01)`` on batches from ``utils/data.prefetch_to_device``:
+   finite losses, the last below the first; (b) the whole train state
+   (params, µ, ν, count) through ``models/checkpoint.save`` to LOCAL_DEVICE
+   on a 16 GiB arena (one write_rows launch a save, read_rows on load, the
+   loaded state equal bit for bit), to LOCAL_HOST, and the params alone to
+   REMOTE_HOST on two of the port's daemons, each loaded back bit for bit
+   with its GB/s; (c) one step from the restored state against one from the
+   live state and (d) 2 ``offload_opt`` steps against 2 plain ones, both
+   under ``torch.use_deterministic_algorithms``, equal bit for bit (the
+   phase runs in a process of its own, whose ``CUBLAS_WORKSPACE_CONFIG``
+   is set before its first product); (e) the median step
+   ms, tokens/s and MFU against the datasheet bf16 rate, and one profiled
+   step (device busy share, the kernels that take the most time).
+
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -121,12 +141,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -1347,6 +1369,17 @@ def phase_bench(device, rate: float, read_kw: dict, copy_kw: dict, trip_kw: dict
         raise AssertionError(f"grader rows 1-3 read NO DATA: {rows[:3]}")
     if timing and rows[4][1] not in ("PASS", "FAIL"):
         raise AssertionError(f"grader row 5 is not graded: {rows[4]}")
+    detail = line["detail"]
+    measured = [v for v in detail["mfu_train_variants"]
+                if "error" not in v and "skipped" not in v]
+    if not measured:
+        raise AssertionError(f"no mfu_train variant was measured: "
+                             f"{detail['mfu_train_variants']}")
+    if timing and not all((detail.get(k) or 0) > 0 for k in ("mfu", "mfu_train")):
+        raise AssertionError(f"mfu {detail.get('mfu')}, mfu_train "
+                             f"{detail.get('mfu_train')}: not both measured")
+    if timing and rows[3][1] not in ("PASS", "FAIL"):
+        raise AssertionError(f"grader row 4 is not graded: {rows[3]}")
     if check_launches and not all(launches.values()):
         raise AssertionError(f"the bench did not launch every kernel: {launches}")
 
@@ -1849,6 +1882,334 @@ def _expect_code(exc, code, fn) -> str:
 # -- main -------------------------------------------------------------------
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+# Phase 9's workload: the JAX package's training flagship
+# (benchmarks/mfu.train_sized_config: 1.1B parameters, bf16, all 16 layers,
+# batch 4 of 1024 tokens) with the production optimizer.
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_ARENA = 16 * GiB
+# Token ids drawn from a Zipf law over the vocabulary (s = 1.1), as word
+# frequencies in text fall: uniform ids would leave the model nothing to
+# learn in 8 steps but the scale of its logits.
+ZIPF_S = 1.1
+
+
+def zipf_batches(vocab: int, batch: int, seq: int, n: int, seed: int):
+    """``n`` int32 (batch, seq) numpy batches of Zipf-distributed ids."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1, dtype=np.float64) ** ZIPF_S
+    p /= p.sum()
+    for _ in range(n):
+        yield rng.choice(vocab, size=(batch, seq), p=p).astype(np.int32)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def _same_tree(a, b, what: str) -> None:
+    """Every leaf of two train states equal bit for bit."""
+    from oncilla_tpu_torch.models.checkpoint import _walk
+
+    la, lb = list(_walk(a)), list(_walk(b))
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        raise AssertionError(f"{what}: the trees differ in structure")
+    for (key, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                _bits(x), _bits(y).to(x.device)):
+            raise AssertionError(f"{what}: leaf {key} differs")
+
+
+def _region_against_plain(ctx, h, tree, back) -> None:
+    """K1 and K2 each held against its plain version at a LOCAL_DEVICE
+    checkpoint's size, which is larger than any extent the kernel phases
+    copy: after the save's write_rows, the (fresh, zeroed) arena holds the
+    packed region at the handle's extent and zeros everywhere else, as
+    write_rows_plain leaves it; the buffer the load's read_rows filled (the
+    one the loaded leaves are views of) equals read_rows_plain of the same
+    extent. Bit for bit."""
+    from oncilla_tpu_torch.models import checkpoint as ck
+    from oncilla_tpu_torch.ops import dma
+
+    arena = ctx.device_arenas[h.device_index].buffer
+    off, n = h.extent.offset, h.nbytes
+    if not torch.equal(arena[off:off + n], ck._pack(tree)):
+        raise AssertionError(f"write_rows left other bytes than write_rows_plain "
+                             f"in the {n} B checkpoint's extent")
+    if arena[:off].any() or arena[off + n:].any():
+        raise AssertionError("write_rows wrote outside the checkpoint's extent")
+    leaves = [t for _, t in ck._walk(back)]
+    storage = leaves[0].untyped_storage()
+    if any(t.untyped_storage().data_ptr() != storage.data_ptr() for t in leaves):
+        raise AssertionError("the loaded leaves are not views of one buffer")
+    loaded = torch.empty(0, dtype=torch.uint8, device=leaves[0].device).set_(storage)
+    if loaded.numel() != n or not torch.equal(loaded, dma.read_rows_plain(arena, off, n)):
+        raise AssertionError(f"read_rows read other bytes than read_rows_plain from "
+                             f"the {n} B checkpoint's extent")
+
+
+def _clone_state(params, opt, host_moments: bool = False):
+    """A copy of (params, opt_state); ``host_moments`` puts Adam's µ and ν in
+    pinned host memory (the ``offload_opt`` placement)."""
+    from oncilla_tpu_torch.models.optim import ScaleByAdamState
+
+    def moment(t):
+        if not host_moments:
+            return t.clone()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda).copy_(t)
+
+    adam = opt[0]
+    return ({k: v.clone() for k, v in params.items()},
+            (ScaleByAdamState(adam.count.clone(),
+                              {k: moment(v) for k, v in adam.mu.items()},
+                              {k: moment(v) for k, v in adam.nu.items()}), *opt[1:]))
+
+
+def _timed_steps(step, params, opt, batch, n: int, device) -> tuple:
+    """``n`` steps on ``batch``, each synchronised: (params, opt, loss, ms)."""
+    ms = []
+    for _ in range(n):
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return params, opt, loss, ms
+
+
+def profile_train_step(step, params, opt, batch, device) -> dict:
+    """One train step under ``torch.profiler``: the device's busy share
+    (the kernels' summed time over the window's wall time; one stream, so
+    kernels do not overlap; the profiler's cost is in the wall time, so the
+    share is a lower bound) and the kernels that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) * 1e-6
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_s * 1e3,
+        "device_busy_share": busy_s / wall if kernels else None,
+        "launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:70]: e.self_device_time_total * 1e-3 for e in top},
+    }
+
+
+def phase_train(device, cfg, batch: int, seq: int, *, steps: int = TRAIN_STEPS,
+                arena_bytes: int = TRAIN_ARENA, timing: bool = True,
+                check_launches: bool = True) -> dict:
+    """Phase 9: dense Llama training on the card. (a) ``steps`` steps of
+    ``make_train_step`` with ``adamw(3e-4, 0.01)`` on batches from
+    ``prefetch_to_device``: finite losses, the last below the first; (b)
+    the whole train state (params, µ, ν, count) through
+    ``checkpoint.save`` to LOCAL_DEVICE on an ``arena_bytes`` arena (one
+    write_rows launch a save, read_rows on load, each kernel's bytes equal
+    its plain version's at that size, the loaded state equal bit for bit),
+    then to LOCAL_HOST, and the params alone to REMOTE_HOST on
+    two of the port's daemons, each loaded back bit for bit; (c) one step
+    from the restored state against one from the live state and (d) 2
+    steps with ``offload_opt`` against 2 plain steps, under
+    ``torch.use_deterministic_algorithms``, equal bit for bit; (e) step ms,
+    tokens/s and MFU, and one profiled step."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.benchmarks.mfu import train_flops
+    from oncilla_tpu_torch.models import checkpoint as ck
+    from oncilla_tpu_torch.models import train
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.runtime.cluster import local_cluster
+    from oncilla_tpu_torch.utils.data import prefetch_to_device
+    from oncilla_tpu_torch.utils.platform import peak_flops
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    params, opt, tx = train.make_train_state(cfg, lr=TRAIN_LR, device=device, seed=0)
+    step = train.make_train_step(cfg, tx)
+    data = list(zipf_batches(cfg.vocab, batch, seq, steps + 4, seed=9))
+    report: dict = {"batch": batch, "seq": seq, "steps": steps}
+    # The main path: counts from 0 just before, read just after.
+    dma.reset_launches()
+
+    # (a) Training on prefetched batches.
+    losses, step_ms = [], []
+    for tokens in prefetch_to_device(iter(data[:steps]), device):
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))  # synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite, or not falling")
+    report.update(losses=losses, step_ms=step_ms)
+    log(f"[train] (a) {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"step ms {[round(m, 2) for m in step_ms]}")
+
+    # (b) The whole train state through the checkpoint.
+    state = {"params": params, "opt": opt}
+    nbytes = ck.checkpoint_nbytes(state)
+    p_bytes = ck.checkpoint_nbytes(params)
+    rates = report["checkpoint"] = {"state_bytes": nbytes, "params_bytes": p_bytes}
+
+    def round_trip(ctx, tree, kind, nbytes, what):
+        w0, r0 = dma.write_rows.launches, dma.read_rows.launches
+        sync()
+        t = time.perf_counter()
+        h = ck.save(ctx, tree, kind)
+        sync()
+        put_s = time.perf_counter() - t
+        k1 = dma.write_rows.launches - w0
+        t = time.perf_counter()
+        back = ck.load(ctx, h, like=tree)
+        sync()
+        get_s = time.perf_counter() - t
+        k2 = dma.read_rows.launches - r0
+        _same_tree(tree, back, f"{what} checkpoint")
+        rates[what] = {"save_gbps": nbytes / put_s / 1e9, "load_gbps": nbytes / get_s / 1e9,
+                       "save_s": put_s, "load_s": get_s, "K1": k1, "K2": k2}
+        log(f"[train] (b) {what}: {nbytes} B, save {rates[what]['save_gbps']:.3f} GB/s, "
+            f"load {rates[what]['load_gbps']:.3f} GB/s; K1 {k1}, K2 {k2}; bit for bit")
+        return h, back
+
+    cfg_ctx = ocm.OcmConfig(host_arena_bytes=nbytes + MiB, device_arena_bytes=arena_bytes)
+    with ocm.ocm_init(cfg_ctx, device=device) as ctx:
+        h, restored = round_trip(ctx, state, OcmKind.LOCAL_DEVICE, nbytes, "LOCAL_DEVICE")
+        _region_against_plain(ctx, h, state, restored)
+        log(f"[train] (b) LOCAL_DEVICE: write_rows = write_rows_plain and read_rows = "
+            f"read_rows_plain on the {nbytes} B region, bit for bit")
+        if check_launches and (rates["LOCAL_DEVICE"]["K1"] != 1
+                               or rates["LOCAL_DEVICE"]["K2"] < 1):
+            raise AssertionError(f"a LOCAL_DEVICE save is not one write_rows launch, or "
+                                 f"its load no read_rows launch: {rates['LOCAL_DEVICE']}")
+        ctx.free(h)
+        h, _ = round_trip(ctx, state, OcmKind.LOCAL_HOST, nbytes, "LOCAL_HOST")
+        ctx.free(h)
+    with local_cluster(2, host_arena_bytes=[MiB, p_bytes + 64 * MiB],
+                       device_arena_bytes=MiB) as cl:
+        ctx = cl.context(0, device=device)
+        h, _ = round_trip(ctx, params, OcmKind.REMOTE_HOST, p_bytes, "REMOTE_HOST")
+        if h.rank != 1 or not h.is_remote:
+            raise AssertionError(f"the REMOTE_HOST checkpoint landed on rank {h.rank}")
+        ctx.free(h)
+        ctx.tini()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c), (d) under deterministic algorithms (the embedding's backward
+    # accumulates with atomics otherwise).
+    torch.use_deterministic_algorithms(True)
+    try:
+        tokens = torch.from_numpy(data[steps]).to(device)
+        # (c) resumed step against live step.
+        *live, loss_live = step(params, opt, tokens)
+        *resumed, loss_resumed = step(restored["params"], restored["opt"], tokens)
+        _same_tree(live, resumed, "(c) the resumed step")
+        if not torch.equal(_bits(loss_live), _bits(loss_resumed)):
+            raise AssertionError("(c) the resumed step's loss differs")
+        del restored, resumed
+        log("[train] (c) one step from the restored state = one from the live state, "
+            "bit for bit")
+        # (d) offloaded moments against plain, from the same state.
+        plain_state = _clone_state(params, opt)
+        off_state = _clone_state(params, opt, host_moments=True)
+        off_step = train.make_train_step(cfg, tx, offload_opt=True, opt_state=off_state[1])
+        d_batch = torch.from_numpy(data[steps + 1]).to(device)
+        *plain_state, _, plain_ms = _timed_steps(step, *plain_state, d_batch, 2, device)
+        *off_state, _, off_ms = _timed_steps(off_step, *off_state, d_batch, 2, device)
+        _same_tree(plain_state, off_state, "(d) the offloaded steps")
+        report["offload"] = {"plain_ms": plain_ms, "offload_ms": off_ms}
+        log(f"[train] (d) 2 offload_opt steps = 2 plain steps, bit for bit; step ms "
+            f"plain {[round(m, 2) for m in plain_ms]}, offload {[round(m, 2) for m in off_ms]}")
+        del plain_state, off_state
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # (e) Step time, tokens/s, MFU; one profiled step.
+    steady = step_ms[1:]  # the first step warms cuBLAS and the allocator
+    med = statistics.median(steady)
+    report["step_ms_median"] = med
+    report["tokens_per_s"] = batch * seq / med * 1e3
+    flops = train_flops(cfg, batch, seq)
+    report["train_flops"] = flops
+    if timing:
+        peak = peak_flops(torch.cuda.get_device_name(device))
+        report["mfu"] = flops / (med * 1e-3) / peak
+        report["peak_tflops"] = peak / 1e12
+    report["profile"] = profile_train_step(step, params, opt,
+                                           torch.from_numpy(data[steps + 2]).to(device),
+                                           device)
+    report["launches"] = dma.launches()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] (e) step {med:.2f} ms median of {len(steady)}, "
+        f"{report['tokens_per_s']:.1f} tokens/s, MFU {report.get('mfu')} "
+        f"(peak {report.get('peak_tflops')} TFLOP/s); profile "
+        + json.dumps(report["profile"]))
+    log(f"[train] launches {report['launches']}; phase {report['seconds']:.3f} s")
+    del params, opt, state
+    if on_card:
+        torch.cuda.empty_cache()
+    return report
+
+
+def _train_child(queue, device, cfg, batch: int, seq: int, kw: dict) -> None:
+    try:
+        queue.put(("ok", phase_train(device, cfg, batch, seq, **kw)))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+def phase_train_isolated(cfg, batch: int, seq: int, device=None, **kw) -> dict:
+    """Phase 9 in a process of its own, with ``CUBLAS_WORKSPACE_CONFIG``
+    set for that process only. Its bit-equal steps need cuBLAS's fixed
+    workspace, which cuBLAS reads when a process makes its first handle;
+    set in this process it would double the host's cost of every product
+    (H100, 700 W: 2000 64x64 products 42-45 µs each without it, 98-102 µs
+    with it; eager decode tokens/s 32-40 % lower;
+    ``scripts/cublas_workspace_ab.py``)
+    and slow the host-bound phases before it. ``device`` (cuda:0 by
+    default) and ``kw`` go to :func:`phase_train`."""
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        device = torch.device("cuda", 0) if device is None else device
+        proc = mp.Process(target=_train_child, args=(queue, device, cfg, batch, seq, kw))
+        proc.start()
+    finally:
+        if before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+    try:
+        status, payload = queue.get(timeout=600)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok":
+        raise AssertionError(f"phase 9 failed in its process:\n{payload}")
+    return payload
+
+
 def across_cards() -> int:
     """``python3 chip_smoke.py --across-cards``: phase 6's one-sided copies
     and handle path with the 4 rows on 4 cards (cuda:0..3, or the cards
@@ -1906,6 +2267,7 @@ def main(argv=None) -> int:
     if argv:
         print("usage: python3 chip_smoke.py [--across-cards]", file=sys.stderr)
         return 2
+    from oncilla_tpu_torch.benchmarks.mfu import train_sized_config
     from oncilla_tpu_torch.models import llama
     from oncilla_tpu_torch.models.kv_paging import page_bytes
     from oncilla_tpu_torch.ops import dma
@@ -1977,11 +2339,17 @@ def main(argv=None) -> int:
     bench = phase_bench(device, card["hbm_rate"], CEIL_READ, CEIL_COPY, CEIL_TRIP,
                         bench_kw={}, gb_max=1 * GiB)
 
+    # Phase 9 last, in a process of its own: the card holds nothing of the
+    # earlier phases.
+    t = time.perf_counter()
+    trn = phase_train_isolated(*train_sized_config())
+    log(f"[train] phase 9 with its process {time.perf_counter() - t:.3f} s")
+
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "serving_engine": engine_launches, "wire": wire["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
-                 "bench": bench["launches"]}
+                 "bench": bench["launches"], "train": trn["launches"]}
     rows_by_kernel = {**kern, **fab["rows"], **bench["rows"]}
     line = []
     for name, rows in rows_by_kernel.items():
@@ -2033,7 +2401,14 @@ def main(argv=None) -> int:
             "plain_loop_gbps", "alloc_p50_us", "free_p50_us")},
         "ceiling": bench["ceiling"],
         "bench": {"value": bench["bench"]["value"], "vs_hbm": bench["bench"]["vs_hbm"],
-                  "grade": [r[:2] for r in bench["grade"]]},
+                  "grade": [r[:2] for r in bench["grade"]],
+                  **{k: bench["bench"]["detail"].get(k) for k in (
+                      "mfu", "mfu_forward_tflops", "mfu_train", "mfu_train_tflops",
+                      "mfu_train_variants")},
+                  "stage_s": bench["bench"]["detail"]["stage_s"]},
+        "train": {k: trn.get(k) for k in (
+            "batch", "seq", "losses", "step_ms", "step_ms_median", "tokens_per_s",
+            "mfu", "peak_tflops", "checkpoint", "offload", "profile", "seconds")},
         "seconds": time.perf_counter() - t_all,
     }
     log("[summary] " + json.dumps(summary))

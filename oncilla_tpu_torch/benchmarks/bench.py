@@ -15,11 +15,16 @@ costs only its own fields:
 - ``gb_sweep``: the size sweep over a 2 GiB + 256 MiB device arena, 128 MiB
   to 1 GiB largest first and then 1 KiB to 64 MiB, each point
   ``[write, read, read_amortized]`` (:func:`bench_gb_sweep`);
+- ``mfu_forward`` and ``mfu_train`` (bench.py:672-694): the 1.1B decoder's
+  forward MFU (``detail.mfu``, ``mfu_forward_tflops``) and the best train
+  variant's (``detail.mfu_train``, ``mfu_train_tflops``,
+  ``mfu_train_variants``) against the card's datasheet bf16 rate
+  (:mod:`.mfu`);
 - ``kv_decode``: paged-KV decode tokens/s, the small config, 256 tokens in
   pages of 128.
 
-``dcn``, ``mfu``, ``gups`` and ``serving`` wait for later slices of the port
-and stand in ``detail.errors`` as "not ported"; ``ok`` is true when no other
+``dcn``, ``gups`` and ``serving`` wait for later slices of the port and
+stand in ``detail.errors`` as "not ported"; ``ok`` is true when no other
 error is there. Grade a line with :mod:`.check`.
 
 Run on a CUDA machine: ``python -m oncilla_tpu_torch.benchmarks.bench``.
@@ -42,9 +47,9 @@ from oncilla_tpu_torch.benchmarks import copy_bench
 from oncilla_tpu_torch.utils.platform import resolve_device
 
 NOT_PORTED = "not ported"
-# bench.py's stages that wait for later slices: the wire client (dcn, gups
-# through runtime.cluster), serving, and training (mfu).
-_LATER = ("dcn", "mfu", "gups", "serving")
+# bench.py's stages that wait for later slices: the data plane's legs
+# through the cluster (dcn, gups) and the serving harness.
+_LATER = ("dcn", "gups", "serving")
 
 GB_ARENA = (2 << 30) + (256 << 20)
 # (min, max, iters, share of the stage's seconds, write cap, descending):
@@ -93,11 +98,19 @@ def bench_gb_sweep(errors: dict, seconds: float = 205.0, device=None,
         return {}
 
 
+def _rounded(x, digits: int):
+    return None if x is None else round(x, digits)
+
+
 def run(device=None, deadline_s: float = 840.0, timing: bool = True,
         copy_kw: dict | None = None, ceiling_kw: dict | None = None,
-        gb_kw: dict | None = None, kv_kw: dict | None = None) -> dict:
+        gb_kw: dict | None = None, kv_kw: dict | None = None,
+        mfu_kw: dict | None = None) -> dict:
     """Every stage on ``device``; returns the JSON object. ``*_kw`` override
-    a stage's sizes (the defaults are bench.py's)."""
+    a stage's sizes (the defaults are bench.py's); ``mfu_kw`` holds
+    ``forward`` (:func:`.mfu.mfu_forward`'s arguments) and ``train``
+    (:func:`.mfu.mfu_train_best`'s, ``variants`` among them)."""
+    from oncilla_tpu_torch.benchmarks import mfu
     from oncilla_tpu_torch.benchmarks.ceiling import ceiling_probe
     from oncilla_tpu_torch.benchmarks.kv_decode import run_bench
 
@@ -152,6 +165,32 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
             errors, seconds=max(30.0, min(420.0, time_left() - 120.0)),
             device=device, timing=timing, **(gb_kw or {}))
     mark("gb_sweep")
+
+    # The 1.1B decoder's MFU: bench.py's two stages, each within 240 s.
+    mfu_kw = mfu_kw or {}
+    if budgeted("mfu_forward", 240):
+        try:
+            fwd = mfu.mfu_forward(device=device, **mfu_kw.get("forward", {}))
+            detail["mfu"] = _rounded(fwd["mfu"], 4) if timing else None
+            detail["mfu_forward_tflops"] = (
+                _rounded(fwd["tflops"], 2) if timing else None)
+        except Exception as e:  # noqa: BLE001
+            errors["mfu_forward"] = f"{type(e).__name__}: {e}"
+    mark("mfu_forward")
+    if budgeted("mfu_train", 240):
+        try:
+            trn = mfu.mfu_train_best(
+                deadline=time.monotonic() + min(300.0, time_left() - 120.0),
+                device=device, **mfu_kw.get("train", {}))
+            detail["mfu_train"] = _rounded(trn["mfu"], 4) if timing else None
+            detail["mfu_train_tflops"] = (
+                _rounded(trn["tflops"], 2) if timing else None)
+            detail["mfu_train_variants"] = [
+                {**v, "mfu": v.get("mfu") if timing else None}
+                for v in trn["variants"]]
+        except Exception as e:  # noqa: BLE001
+            errors["mfu_train"] = f"{type(e).__name__}: {e}"
+    mark("mfu_train")
 
     for name in _LATER:
         errors[name] = NOT_PORTED

@@ -1,8 +1,10 @@
-"""Model-side public surface: the Llama family and KV paging, mirroring
+"""Model-side public surface: the Llama family, KV paging, dense training
+on one device and the checkpoint, mirroring
 ``oncilla_tpu/models/__init__.py``'s exports for what the port has.
 
 Attribute access is lazy (PEP 562); submodules (``models.llama``,
-``models.kv_paging``, ``models.graphs``) stay importable directly.
+``models.kv_paging``, ``models.graphs``, ``models.optim``,
+``models.train``, ``models.checkpoint``) stay importable directly.
 """
 
 from __future__ import annotations
@@ -10,10 +12,26 @@ from __future__ import annotations
 _EXPORTS = {
     "LlamaConfig": "llama",
     "init_params": "llama",
+    "init_params_host": "llama",
     "params_from_jax": "llama",
+    "forward": "llama",
+    "forward_hidden": "llama",
+    "loss_fn": "llama",
+    "blocked_cross_entropy": "llama",
+    "causal_mask": "llama",
     "decode_step": "llama",
+    "decode_loop": "llama",
+    "generate": "llama",
     "make_kv_cache": "llama",
     "sample_token": "llama",
+    "adamw": "optim",
+    "opt_state_from_jax": "optim",
+    "make_train_state": "train",
+    "make_train_state_host": "train",
+    "make_train_step": "train",
+    "make_eval_step": "train",
+    "evaluate": "train",
+    "sample_batch": "train",
     "PagedKVCache": "kv_paging",
     "PagedDecoder": "kv_paging",
     "BucketedPagedDecoder": "kv_paging",

@@ -1,27 +1,37 @@
-"""Llama-style decoder, decode half, in plain PyTorch.
+"""Llama-style decoder in plain PyTorch: training forward and loss, and
+decode.
 
-The counterpart of ``oncilla_tpu/models/llama.py`` for single-token decode:
-the same parameter names and shapes (weights ``(dim, heads*head_dim)``,
-layers stacked on a leading axis), the same ``(B, H, S, Hd)`` attention
-layout, bf16 activations with fp32 norms, scores and softmax. Attention is
-written as plain matmul + softmax over *unexpanded* GQA K/V, as the JAX
+The counterpart of ``oncilla_tpu/models/llama.py``: the same parameter
+names and shapes (weights ``(dim, heads*head_dim)``, layers stacked on a
+leading axis), the same ``(B, H, S, Hd)`` attention layout, bf16
+activations with fp32 norms, scores and softmax. Attention is written as
+plain matmul + softmax over *unexpanded* GQA K/V, as the JAX
 ``grouped_attention`` is, so the two packages compare like with like.
 
 Differences from the JAX package, by PyTorch idiom: parameters are a plain
 dict of tensors on an explicit device; random init takes a
 ``torch.Generator`` (its numbers differ from ``jax.random``'s, so tests
-carry JAX's parameters across with :func:`params_from_jax`); and
+carry JAX's parameters across with :func:`params_from_jax`), while
+:func:`init_params_host` makes the JAX package's numpy draws;
 :func:`decode_step` writes the new K/V into the cache in place instead of
-returning a functional copy.
+returning a functional copy; ``remat`` is ``torch.utils.checkpoint``; and
+the loops the JAX package writes as ``lax.scan`` are Python loops (eager
+launches are asynchronous, so no host synchronisation sits in them).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from oncilla_tpu_torch.utils.platform import resolve_device
 
@@ -126,19 +136,42 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
     return out
 
 
-def params_from_jax(np_params: dict, device=None) -> dict:
-    """The JAX package's parameters, handed over as numpy arrays (any
-    dtype numpy holds, bf16 included), as tensors on ``device``."""
+def init_params_host(seed: int, cfg: LlamaConfig, device=None) -> dict:
+    """The JAX package's ``init_params_host``: the same numpy draws in the
+    same order, so both packages start from identical weights, moved to
+    ``device``."""
     dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    dt = torch_dtype(cfg.dtype)
     out = {}
-    for name, arr in np_params.items():
-        arr = np.asarray(arr)
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    for name, (shape, scale) in param_spec(cfg).items():
+        if scale is None:
+            out[name] = torch.ones(shape, dtype=torch.float32, device=dev)
         else:
-            t = torch.from_numpy(np.array(arr))
-        out[name] = t.to(dev)
+            # numpy computes the product in float64 (a float32 array times a
+            # numpy float64); it is rounded to float32, then to the weight
+            # dtype, as the JAX package's astype rounds it.
+            x = rng.standard_normal(shape, dtype=np.float32) * scale
+            out[name] = torch.from_numpy(x.astype(np.float32)).to(dev, dt)
     return out
+
+
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A numpy array of any dtype numpy holds, bf16 included, as a tensor
+    (a copy) on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device)
+
+
+def params_from_jax(np_params: dict, device=None) -> dict:
+    """The JAX package's parameters, handed over as numpy arrays, as
+    tensors on ``device``."""
+    dev = resolve_device(device)
+    return {name: tensor_from_numpy(arr, dev) for name, arr in np_params.items()}
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -191,10 +224,23 @@ def grouped_attention(q, k, v, mask=None):
     return o.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def block(cfg: LlamaConfig, x, lp, positions, attend):
+def causal_mask(sq: int, sk: int, window: int | None = None,
+                device=None) -> torch.Tensor:
+    """Lower-triangular (sq, sk) bool mask aligned to the *end* of the key
+    axis; with ``window``, each query also sees at most its last ``window``
+    keys: key j attends to query i iff i-window < j-(sk-sq) <= i."""
+    ones = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    m = torch.tril(ones, diagonal=sk - sq)
+    if window is not None:
+        m &= torch.triu(ones, diagonal=sk - sq - window + 1)
+    return m
+
+
+def block(cfg: LlamaConfig, x, lp, positions, attend, mlp=None):
     """One transformer block. x: (B, S, D); ``attend(q, kn, vn)`` gets the
     rotary-embedded q (B, H, S, Hd) and unexpanded K/V (B, KV, S, Hd) and
-    returns (B, H, S, Hd)."""
+    returns (B, H, S, Hd). ``mlp(h)`` (if given) replaces the dense SwiGLU
+    FFN on the rmsnorm'd residual (the MoE family's hook)."""
     B, S, _ = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -210,12 +256,129 @@ def block(cfg: LlamaConfig, x, lp, positions, attend):
     x = x + attn @ lp["wo"]
 
     h = rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    if mlp is not None:
+        return x + mlp(h)
     return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
 def final_logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
     x = rmsnorm(x, params["ln_out"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
+
+
+def make_attend(S: int, mesh=None, seq_axis: str | None = None,
+                window: int | None = None, device=None):
+    """Causal dense attention over S keys (``window`` band-limits it). The
+    JAX package's ring-attention branch (``seq_axis`` over a mesh) waits
+    for the sharded slice of the port."""
+    if seq_axis is not None:
+        raise NotImplementedError(
+            "ring attention over a sequence axis is not ported yet "
+            "(ROADMAP A 3, the sharded meshes)")
+    mask = causal_mask(S, S, window, device=device)
+
+    def attend(q, kn, vn):
+        return grouped_attention(q, kn, vn, mask)
+
+    return attend
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the 2-D weight products
+    (``h @ w`` of a (B, S, D) activation lowers to ``aten.mm``), recompute
+    the rest, the attention ``bmm``s among it. JAX's
+    ``dots_with_no_batch_dims_saveable`` draws the same line: its weight
+    einsums have no batch dimension, the attention einsums do."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat):
+    """``remat`` placement: False stores every block activation; True
+    checkpoints the whole block (backward recomputes it); ``"dots"``
+    checkpoints it but keeps the weight products' outputs
+    (:func:`_save_weight_products`)."""
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_weight_products)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    if remat:
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
+                   mesh=None, seq_axis: str | None = None,
+                   remat=False) -> torch.Tensor:
+    """Final hidden states (B, S, D), pre-``ln_out``; ``remat`` per
+    :func:`_remat_wrap`. Each stacked leaf is unbound once, so its
+    gradient is one stack of the layers' gradients."""
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    positions = torch.arange(S, device=tokens.device)
+    attend = make_attend(S, mesh, seq_axis, window=cfg.window,
+                         device=tokens.device)
+
+    def one_block(x, lp):
+        return block(cfg, x, lp, positions, attend)
+
+    one_block = _remat_wrap(one_block, remat)
+    layers = {k: params[k].unbind(0) for k in LAYER_KEYS}
+    for i in range(cfg.n_layers):
+        x = one_block(x, {k: layers[k][i] for k in LAYER_KEYS})
+    return x
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            **kw) -> torch.Tensor:
+    """fp32 logits for a token batch (B, S) (see :func:`forward_hidden`)."""
+    return final_logits(params, forward_hidden(params, tokens, cfg, **kw), cfg)
+
+
+def blocked_cross_entropy(params: dict, x: torch.Tensor, targets: torch.Tensor,
+                          cfg: LlamaConfig, block: int = 512) -> torch.Tensor:
+    """Next-token CE without the (B, S, V) logits: the vocab head runs on
+    chunks of ``block`` positions, each chunk's logits and NLL under
+    ``checkpoint``, so backward recomputes that chunk's logits. ``x`` is
+    the pre-``ln_out`` hidden (B, S, D), ``targets`` (B, S-1); the last
+    chunk is zero-padded and its padding masked, as in the JAX package."""
+    xh = rmsnorm(x, params["ln_out"], cfg.norm_eps)[:, :-1]
+    B, T, _ = xh.shape
+    pad = (-T) % block
+    mask = (torch.arange(T + pad, device=x.device) < T).expand(B, T + pad)
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+    targets = targets.long()
+
+    def chunk_nll(xc, tc, mc):
+        logits = (xc @ params["lm_head"]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc[..., None])[..., 0]
+        return torch.sum((lse - tgt) * mc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, T + pad, block):
+        sl = slice(lo, lo + block)
+        total = total + checkpoint(chunk_nll, xh[:, sl], targets[:, sl],
+                                   mask[:, sl], use_reentrant=False)
+    return total / (B * T)
+
+
+def loss_fn(params, tokens, cfg: LlamaConfig, *, ce_block: int | None = None,
+            **kw) -> torch.Tensor:
+    """Mean next-token cross entropy. ``ce_block`` switches to
+    :func:`blocked_cross_entropy`."""
+    if ce_block is not None:
+        x = forward_hidden(params, tokens, cfg, **kw)
+        return blocked_cross_entropy(params, x, tokens[:, 1:], cfg,
+                                     block=ce_block)
+    logits = forward(params, tokens, cfg, **kw)[:, :-1]
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -281,3 +444,38 @@ def make_kv_cache(cfg: LlamaConfig, batch: int, dtype=None, device=None):
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
     return (torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev))
+
+
+def decode_loop(params, tokens: torch.Tensor, kv_cache: tuple,
+                cfg: LlamaConfig, *, step_fn=None):
+    """Teacher-forced decode of ``tokens`` (B, N) from position 0, one
+    :func:`decode_step` a position (``step_fn`` swaps in another family's):
+    returns (logits (B, N, vocab), kv_cache)."""
+    step_fn = step_fn or decode_step
+    logits = []
+    for pos in range(tokens.shape[1]):
+        step_logits, kv_cache = step_fn(params, tokens[:, pos], pos, kv_cache,
+                                        cfg)
+        logits.append(step_logits)
+    return torch.stack(logits, dim=1), kv_cache
+
+
+@torch.no_grad()
+def generate(params, prompt: torch.Tensor, kv_cache: tuple, cfg: LlamaConfig,
+             steps: int, *, generator: torch.Generator | None = None,
+             temperature: float = 0.0, step_fn=None):
+    """Prefill over ``prompt`` (B, P), then ``steps`` sampled tokens
+    (greedy at ``temperature`` 0, else drawn with ``generator``). Returns
+    ((B, steps) ids, kv_cache); the cache covers the prompt and the first
+    steps-1 samples, so decoding goes on from position P + steps - 1."""
+    P = prompt.shape[1]
+    step_fn = step_fn or decode_step
+    logits, kv_cache = decode_loop(params, prompt, kv_cache, cfg,
+                                   step_fn=step_fn)
+    tok = sample_token(logits[:, -1], temperature, generator).to(prompt.dtype)
+    out = [tok]
+    for pos in range(P, P + steps - 1):
+        step_logits, kv_cache = step_fn(params, tok, pos, kv_cache, cfg)
+        tok = sample_token(step_logits, temperature, generator).to(prompt.dtype)
+        out.append(tok)
+    return torch.stack(out, dim=1), kv_cache

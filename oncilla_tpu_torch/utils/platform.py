@@ -7,10 +7,13 @@ hide the device a measurement claims to run on. The CPU is used only when
 asked for by name (``device="cpu"``), as the tests do.
 
 :func:`hbm_rate` is the card's datasheet memory rate, the yardstick of
-every copy's bound.
+every copy's bound; :func:`peak_flops` its datasheet dense bf16 rate, the
+yardstick of MFU.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -47,3 +50,26 @@ def hbm_rate(name: str) -> float:
         if key in name:
             return rate
     raise OcmDeviceError(f"no datasheet HBM rate for card {name!r}")
+
+
+# Datasheet dense bf16 tensor-core rates (FLOP/s, without sparsity: the
+# datasheets' 1979 TFLOP/s for the SXM part is with it), most specific name
+# first.
+_BF16_PEAK = (
+    ("H200", 989e12),
+    ("H100 NVL", 835e12),
+    ("H100 PCIe", 756e12),
+    ("H100", 989e12),  # H100 SXM5
+)
+
+
+def peak_flops(name: str) -> float:
+    """Datasheet dense bf16 FLOP/s of the card ``name``; ``OCM_PEAK_TFLOPS``
+    (TFLOP/s) overrides it, as in the JAX package."""
+    override = os.environ.get("OCM_PEAK_TFLOPS")
+    if override:
+        return float(override) * 1e12
+    for key, rate in _BF16_PEAK:
+        if key in name:
+            return rate
+    raise OcmDeviceError(f"no datasheet bf16 rate for card {name!r}")

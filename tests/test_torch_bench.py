@@ -5,8 +5,9 @@
   over 0.8 x 819 GB/s) becomes ``vs_hbm`` (value over the card's memory
   rate, target 0.80), ``pallas_gbps`` becomes ``copy_loop_gbps``.
 - ``benchmarks/bench.run`` and ``chip_smoke.phase_bench`` (phase 7)
-  rehearsed at tiny sizes with timing off; a wrong plain loop zeroes its
-  number, and a kernel that disagrees with its plain version fails phase 7.
+  rehearsed at tiny sizes with timing off, the mfu stages on the tiny
+  Llama; a wrong plain loop zeroes its number, and a kernel that disagrees
+  with its plain version fails phase 7.
 - Without CUDA the bench refuses.
 """
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+from oncilla_tpu_torch.models.llama import LlamaConfig
 import oncilla_tpu_torch as tocm
 from oncilla_tpu.benchmarks import check as jcheck
 from oncilla_tpu_torch.benchmarks import bench, check
@@ -109,6 +111,13 @@ BENCH_TINY = {
               "ranges": ((1 * MiB, 2 * MiB, 1, 0.65, 1 * MiB, True),
                          (1 * KiB, 64 * KiB, 2, 0.35, None, False))},
     "kv_kw": {"tokens_n": 8, "page_tokens": 4, "config": "tiny"},
+    "mfu_kw": {
+        "forward": {"cfg": LlamaConfig.tiny(), "batch": 2, "seq": 16, "steps": 1},
+        "train": {"cfg": LlamaConfig.tiny(), "seq": 16, "variants": [
+            {"batch": 2, "remat": "dots", "ce_block": 8, "mu_dtype": torch.bfloat16,
+             "fold": True},
+            {"batch": 2, "remat": False, "ce_block": None, "mu_dtype": None}]},
+    },
 }
 
 
@@ -124,7 +133,12 @@ def test_bench_rehearsal_on_the_cpu():
     d = out["detail"]
     assert out["ok"] is True and list(out)[-1] == "ok"
     assert out["value"] is None and out["vs_hbm"] is None  # no CPU rate
-    assert d["errors"] == dict.fromkeys(("dcn", "mfu", "gups", "serving"), "not ported")
+    assert d["errors"] == dict.fromkeys(("dcn", "gups", "serving"), "not ported")
+    # The mfu stages ran at the tiny size; no CPU number stands as a rate.
+    assert d["mfu"] is None and d["mfu_forward_tflops"] is None
+    assert d["mfu_train"] is None and d["mfu_train_tflops"] is None
+    assert [(v["remat"], v["fold"], v["mfu"]) for v in d["mfu_train_variants"]] == [
+        ("dots", True, None), ("False", False, None)]
     assert list(d["ceiling"]) == ["read_only_gbps", "copy_streams_gbps",
                                   "vmem_roundtrip_gbps"]
     sizes = [int(k) for k in d["gb_sweep"] if k.isdigit()]
@@ -133,7 +147,8 @@ def test_bench_rehearsal_on_the_cpu():
     assert set(d["kv_decode_tok_s"]) == {"plain", "device", "host",
                                          "device_fused", "fused"}
     assert d["onesided_verified"] and d["dma_rows_verified"]
-    assert set(d["stage_s"]) == {"copy_legs", "ceiling", "gb_sweep", "kv_decode"}
+    assert set(d["stage_s"]) == {"copy_legs", "ceiling", "gb_sweep", "mfu_forward",
+                                 "mfu_train", "kv_decode"}
     assert [v for _, v, _ in check.grade(out)] == ["NO DATA"] * 6
 
 
@@ -156,14 +171,16 @@ def test_bench_wrong_plain_loop_zeroes_its_number(monkeypatch):
 
 
 @pytest.mark.parametrize("deadline_s,skipped", [
-    (100.0, ("ceiling", "kv_decode")),  # each stage's need: bench.py's 150/60/200 s
-    (50.0, ("ceiling", "gb_sweep", "kv_decode")),
+    # each stage's need: bench.py's 150/60/240/240/200 s
+    (100.0, ("ceiling", "mfu_forward", "mfu_train", "kv_decode")),
+    (50.0, ("ceiling", "gb_sweep", "mfu_forward", "mfu_train", "kv_decode")),
 ])
 def test_bench_stages_past_the_budget_are_skipped(deadline_s, skipped):
     out = bench.run("cpu", deadline_s=deadline_s, timing=False, **BENCH_TINY)
     d = out["detail"]
     assert out["ok"] is False
     for stage, key in (("ceiling", "ceiling"), ("gb_sweep", "gb_sweep"),
+                       ("mfu_forward", "mfu"), ("mfu_train", "mfu_train"),
                        ("kv_decode", "kv_decode_tok_s")):
         if stage in skipped:
             assert d["errors"][stage].startswith("skipped:") and key not in d
