@@ -104,6 +104,32 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    from/to card and pinned tensors (median of 5) beside a pinned host ->
    card ``copy_``, alloc/free p50 through the daemons, and F's and G's
    tokens/s beside E's and C's.
+8b. daemons_py — the port's Python daemons (``python -m
+   oncilla_tpu_torch.runtime.daemon``), right after phase 8 while the
+   weights are on the card. On two of them, sized as phase 8's pair: (a)
+   REMOTE_HOST of card tensors at 4 KiB, one page, 256 MiB and 1 GiB byte
+   for byte, GB/s at one page and 1 GiB (median of 5) and alloc/free p50
+   over 200, beside phase 8's native figures; (b) a daemon-placed
+   REMOTE_DEVICE page through the app's ``IciDataPlane`` and a plane-less
+   second process whose put and get the daemons relay: bytes equal, K1/K2
+   launches exactly the relayed puts and gets; then a copy between two
+   such handles on a ``SpmdIciPlane``: one K4 launch, bytes equal; (c)
+   one request of 256 teacher-forced and 32 greedy tokens through
+   ``BucketedPagedDecoder`` at Llama-3-8B width (128-token pages,
+   refetch), with REMOTE_DEVICE pages and with REMOTE_HOST pages: logits
+   and tokens equal the unpaged ``decode_step`` bit for bit, one K1 launch
+   a REMOTE_DEVICE page stored and one K2 a page fetched, tokens/s for
+   each. On three, with standby masters, hash placement, 2 replicas and a
+   fast detector: (d) 16 replicated 2 MiB REMOTE_HOST handles put from
+   card tensors, the leader SIGKILLed, ranks 1 and 2 agree on its
+   successor at a higher epoch within a stated budget (the election time
+   printed), new allocations land, every handle reads back byte for byte
+   (a dead primary's through its promoted replica, by REQ_LOCATE and
+   DATA_GET frames); (e) a PRIO_LOW client's CONNECT is granted
+   FLAG_CAP_QOS and its profile shows in STATUS, where the native daemon
+   declines; (f) no daemon pid is among ``nvidia-smi``'s compute apps, and
+   no daemon holds the card's device nodes open (this process, which holds
+   a context, is the positive control).
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -478,16 +504,17 @@ def phase_ocm_test(device, device_arena: int, host_arena: int, sizes,
 
 
 def serve_request(params, cfg, ctx, prompt: torch.Tensor, n_gen: int,
-                  page_tokens: int):
+                  page_tokens: int, kind: str = "LOCAL_DEVICE"):
     """One decode request: teacher-forced prompt, then greedy tokens, all
-    consumed, through paged KV. Returns (consumed ids, per-step logits)."""
+    consumed, through paged KV of ``kind``. Returns (consumed ids,
+    per-step logits, pages shipped)."""
     from oncilla_tpu_torch import OcmKind
     from oncilla_tpu_torch.models import llama
     from oncilla_tpu_torch.models.kv_paging import BucketedPagedDecoder
 
     dec = BucketedPagedDecoder(
         params, cfg, ctx, batch=1, page_tokens=page_tokens,
-        kind=OcmKind.LOCAL_DEVICE, dtype=cfg.dtype, refetch=True,
+        kind=OcmKind[kind], dtype=cfg.dtype, refetch=True,
     )
     ids = list(prompt.view(-1, 1))
     logits = []
@@ -1879,6 +1906,535 @@ def _expect_code(exc, code, fn) -> str:
     raise AssertionError(f"{exc.__name__} was not raised")
 
 
+# -- phase 8b ---------------------------------------------------------------
+
+# The Python daemons of the port (``python -m oncilla_tpu_torch.runtime.
+# daemon``), run by ``local_cluster(..., daemon="python")``. (a)-(c) on two
+# of them, sized as phase 8's native pair; (d) on three with the resilient
+# control plane armed and a fast detector (the reaper ticks every
+# ``PY_HEARTBEAT_S``; a rank is DEAD after two failed probes 100 ms apart).
+# A killed daemon refuses a probe at once; the probe's timeout stays the
+# default 1 s, so a live peer slowed by a loaded host has a second to
+# answer.
+PY_SIZES = (4 * KiB, PAGE, 256 * MiB, GiB)
+PY_KV = (256, 32)  # (c): teacher-forced prompt tokens, then greedy tokens
+PY_HANDLES = (16, 2 * MiB)  # (d): REMOTE_HOST handles put before the kill
+PY_HEARTBEAT_S = 0.2
+PY_RESILIENT_ENV = {
+    "OCM_STANDBY_MASTERS": "2", "OCM_PLACEMENT": "hash", "OCM_REPLICAS": "2",
+    "OCM_DETECT_INTERVAL_MS": "100", "OCM_SUSPECT_AFTER": "1",
+    "OCM_DEAD_AFTER": "2",
+}
+# (d)'s budget from the SIGKILL of the leader to ranks 1 and 2 agreeing on
+# its successor: dead_after probes at the detector's interval, a reaper
+# tick or two to act on the verdict, the election's broadcast; two orders
+# of magnitude of slack for a loaded host.
+PY_ELECTION_BUDGET_S = 15.0
+
+
+def _frame(addr, mtype: str, fields: dict, data=b"", flags: int = 0):
+    """One request on a connection of its own; the reply, ERROR included,
+    is returned, not raised."""
+    import socket
+
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType, recv_msg, send_msg
+
+    with socket.create_connection(addr, timeout=30.0) as s:
+        send_msg(s, Message(MsgType[mtype], fields, data, flags))
+        return recv_msg(s)
+
+
+def _remote_host_handle(fields: dict, origin_rank: int):
+    """The port's handle for an ALLOC_RESULT got by a raw frame."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch.core.arena import Extent
+
+    h = ocm.OcmAlloc(alloc_id=fields["alloc_id"],
+                     kind=ocm.OcmKind.REMOTE_HOST, fabric=ocm.Fabric.DCN,
+                     nbytes=fields["nbytes"], rank=fields["rank"],
+                     device_index=0,
+                     extent=Extent(fields["offset"], fields["nbytes"]),
+                     origin_rank=origin_rank)
+    h.owner_addr = (fields["owner_host"], fields["owner_port"])
+    h.daemon_owned = True
+    return h
+
+
+def _card_fds(pid: int) -> list[str]:
+    """The card's device nodes a process holds open (``/dev/nvidia<N>``,
+    ``/dev/nvidia-uvm``): a CUDA context opens them, importing torch does
+    not."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            path = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if path.startswith("/dev/nvidia") and path != "/dev/nvidiactl":
+            out.add(path)
+    return sorted(out)
+
+
+def _holds_no_card(pids: list[int]) -> dict:
+    """Check (f): no daemon process holds a CUDA context. None of ``pids``
+    is among ``nvidia-smi``'s compute apps, and none holds the card's
+    device nodes open. This process, which holds a context on the card,
+    is the positive control of both where it runs on one."""
+    out = {"pids": pids, "self_pid": os.getpid()}
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        apps = {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+        out["compute_apps"] = sorted(apps)
+        out["self_listed"] = os.getpid() in apps
+        if apps & set(pids):
+            raise AssertionError(f"daemon pids hold the card: {sorted(apps & set(pids))}")
+    except FileNotFoundError:
+        out["compute_apps"] = "nvidia-smi absent"
+    out["self_card_fds"] = _card_fds(os.getpid())
+    held = {pid: _card_fds(pid) for pid in pids}
+    if any(held.values()):
+        raise AssertionError(f"daemon processes hold the card open: {held}")
+    out["daemon_card_fds"] = []
+    return out
+
+
+def phase_daemons_py(device, *, wire=None, engine=None, row_bytes: int = WIRE_ROW,
+                     host_bytes=WIRE_HOST, sizes=PY_SIZES, timed=(PAGE, GiB),
+                     reps: int = 5, alloc_iters: int = 200, kv=PY_KV,
+                     handles=PY_HANDLES, heartbeat_s: float = PY_HEARTBEAT_S,
+                     election_budget_s: float = PY_ELECTION_BUDGET_S,
+                     check_launches: bool = True) -> dict:
+    """Phase 8b, the Python daemons. (a) REMOTE_HOST through two port
+    Python daemons at ``sizes``, byte for byte, GB/s at ``timed`` (median
+    of ``reps``) and alloc/free p50 over ``alloc_iters``, beside phase 8's
+    native figures (``wire``); (b) a daemon-placed REMOTE_DEVICE page
+    through the app's ``IciDataPlane`` (per-device arenas, where a put is a
+    K1 launch and a get a K2 launch) and a plane-less second process whose
+    put and get the daemons relay, K1/K2 rising by exactly the relayed ops,
+    then one copy between two such handles on a ``SpmdIciPlane``, one K4
+    launch; (c) given ``engine`` (``dict(cfg=, params=, page_tokens=)``),
+    one request of ``kv`` tokens through ``BucketedPagedDecoder`` with
+    REMOTE_DEVICE pages and with REMOTE_HOST pages, logits and tokens equal
+    the unpaged ``decode_step`` bit for bit, one K1 a page stored and one
+    K2 a page fetched; (d) three daemons with ``PY_RESILIENT_ENV``: the
+    leader SIGKILLed, ranks 1 and 2 agree on its successor within
+    ``election_budget_s``, allocations land, every handle's bytes read
+    back (those whose primary died through its promoted replica, found by
+    REQ_LOCATE); (e) a PRIO_LOW client's CONNECT granted FLAG_CAP_QOS, its
+    profile in the daemon's STATUS, where the native daemon declines; (f)
+    no daemon holds the card (:func:`_holds_no_card`). Raises on the first
+    check that fails."""
+    import dataclasses as dc
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.ops.ici import IciDataPlane, SpmdIciPlane
+    from oncilla_tpu_torch.qos.policy import PRIO_LOW
+    from oncilla_tpu_torch.runtime.cluster import local_cluster
+    from oncilla_tpu_torch.runtime.protocol import FLAG_CAP_QOS
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(81)
+    report = {}
+    launches = {k: 0 for k in dma.launches()}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts zeroed just before and read
+        just after; the phase's counts add them up."""
+        dma.reset_launches()
+        out = fn()
+        sync()
+        got = dma.launches()
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    t0 = time.perf_counter()
+    with local_cluster(2, daemon="python", ndevices=2, device_arena_bytes=row_bytes,
+                       host_arena_bytes=list(host_bytes)) as cl:
+        start_s = time.perf_counter() - t0
+        plane = IciDataPlane(ocm.OcmConfig(device_arena_bytes=row_bytes),
+                             devices=[device] * 4, devices_per_rank=2)
+        ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=0,
+                                         host_arena_bytes=64 * MiB,
+                                         device_arena_bytes=64 * MiB),
+                           device=device, ici_plane=plane)
+        if ctx.status()["nnodes"] != 2:
+            raise AssertionError(f"rank 0 sees {ctx.status()['nnodes']} nodes")
+        log(f"[daemons_py] two Python daemons up in {start_s:.3f} s (pids "
+            f"{cl.pids()})")
+
+        # (a) REMOTE_HOST, byte for byte; GB/s and alloc/free p50.
+        def remote_host():
+            for n in sizes:
+                h = ctx.alloc(n, OcmKind.REMOTE_HOST)
+                if h.rank != 1:
+                    raise AssertionError(f"REMOTE_HOST {n} B placed on rank {h.rank}")
+                data = torch.empty(n, dtype=torch.uint8, device=device).random_(
+                    0, 256, generator=gen)
+                ctx.put(h, data)
+                if not torch.equal(ctx.get(h).to(device), data):
+                    raise AssertionError(f"REMOTE_HOST {n} B through the Python "
+                                         "daemons: get differs from put")
+                ctx.free(h)
+                del data
+        counted(remote_host)
+        lat = {"alloc": [], "free": []}
+        for _ in range(alloc_iters):
+            t1 = time.perf_counter()
+            x = ctx.alloc(4096, OcmKind.REMOTE_HOST)
+            t2 = time.perf_counter()
+            ctx.free(x)
+            lat["alloc"].append(t2 - t1)
+            lat["free"].append(time.perf_counter() - t2)
+        rates = []
+        for n in timed:
+            r = ctx.alloc(n, OcmKind.REMOTE_HOST)
+            card = torch.empty(n, dtype=torch.uint8, device=device).random_(
+                0, 256, generator=gen)
+            out = torch.empty(n, dtype=torch.uint8, device=device)
+            rec = {"nbytes": n, "reps": reps,
+                   "put_from_card_gbps": n / _median_s(lambda: ctx.put(r, card),
+                                                       reps, device) / 1e9,
+                   "get_to_card_gbps": n / _median_s(lambda: ctx.get(r, out=out),
+                                                     reps, device) / 1e9}
+            if not torch.equal(out, card):
+                raise AssertionError(f"timed REMOTE_HOST {n} B: bytes differ")
+            rates.append(rec)
+            ctx.free(r)
+            del card, out
+        report["remote_host"] = {
+            "sizes": list(sizes), "rates": rates, "start_s": start_s,
+            "alloc_p50_us": statistics.median(lat["alloc"]) * 1e6,
+            "free_p50_us": statistics.median(lat["free"]) * 1e6}
+        if wire is not None:
+            report["remote_host"]["native"] = {
+                "rates": [{k: r[k] for k in ("nbytes", "put_from_card_gbps",
+                                             "get_to_card_gbps")} for r in wire["rates"]],
+                "alloc_p50_us": wire["alloc_p50_us"],
+                "free_p50_us": wire["free_p50_us"]}
+        log(f"[daemons_py] (a) REMOTE_HOST at {list(sizes)} B byte-equal; "
+            f"{json.dumps(report['remote_host'])}")
+
+        # (b) a daemon-placed REMOTE_DEVICE page through the relay.
+        n = min(PAGE, row_bytes // 4)
+        hs = [ctx.alloc(n, OcmKind.REMOTE_DEVICE) for _ in range(2)]
+        if not all(h.daemon_owned for h in hs):
+            raise AssertionError("REMOTE_DEVICE handles not placed by the daemons")
+        for h in hs:
+            if int(torch.count_nonzero(ctx.get(h))) != 0:
+                raise AssertionError(f"handle {h.alloc_id} did not read as zeros")
+        h = hs[0]
+        server = ctx._remote._plane_server
+        served = dict(server.served)
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+        def relay():
+            return subprocess.run(
+                [sys.executable, "-c", _PLANELESS, cl.nodefile, str(h.alloc_id),
+                 str(h.rank), str(h.device_index), str(h.extent.offset), str(n)],
+                capture_output=True, text=True, timeout=300, env=env)
+        out, rose = counted(relay)
+        if out.returncode != 0:
+            raise AssertionError(f"the plane-less process failed:\n{out.stderr[-3000:]}")
+        relayed = {k: v - served[k] for k, v in server.served.items()}
+        if relayed["PLANE_PUT"] < 1 or relayed["PLANE_GET"] < 1:
+            raise AssertionError(f"no relay through the plane server: {relayed}")
+        if check_launches and (rose["write_rows"] != relayed["PLANE_PUT"]
+                               or rose["read_rows"] != relayed["PLANE_GET"]):
+            raise AssertionError(f"relayed ops {relayed} but launches {rose}")
+        if not torch.equal(ctx.get(h).to(device), _pattern(n, device)):
+            raise AssertionError("the controller does not read the relayed bytes")
+        for x in hs:
+            ctx.free(x)
+        report["placed"] = {"nbytes": n, "rows": sorted({(x.rank, x.device_index)
+                                                         for x in hs}),
+                            "relayed": relayed, "launches": rose}
+        log(f"[daemons_py] (b) {json.dumps(report['placed'])}")
+
+        # (c) KV pages through the daemons, REMOTE_DEVICE then REMOTE_HOST.
+        if engine is not None:
+            report["kv"] = _kv_through_daemons(
+                device, engine, ctx, kv, counted, check_launches)
+        ctx.tini()
+        del plane
+        report["no_card"] = _holds_no_card(cl.pids())
+
+        # (b), the copy: K4 between two daemon-placed REMOTE_DEVICE handles
+        # on a SpmdIciPlane, whose plane server the daemons now relay to.
+        spmd = SpmdIciPlane(ocm.OcmConfig(device_arena_bytes=row_bytes),
+                            mesh=[device] * 4, devices_per_rank=2)
+        ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=0,
+                                         host_arena_bytes=64 * MiB,
+                                         device_arena_bytes=64 * MiB),
+                           device=device, ici_plane=spmd)
+        src, dst = (ctx.alloc(n, OcmKind.REMOTE_DEVICE) for _ in range(2))
+        data = torch.empty(n, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen)
+        ctx.put(src, data)
+        _, rose = counted(lambda: ctx.copy(dst, src))
+        if check_launches and (rose["onesided_copy"] != 1
+                               or sum(rose.values()) != 1):
+            raise AssertionError(f"REMOTE_DEVICE copy launched {rose}, want one K4")
+        if not torch.equal(ctx.get(dst).to(device), data):
+            raise AssertionError("REMOTE_DEVICE copy: bytes differ")
+        report["placed"]["copy"] = {"rows": [(src.rank, src.device_index),
+                                             (dst.rank, dst.device_index)],
+                                    "launches": rose}
+        ctx.free(src)
+        ctx.free(dst)
+        ctx.tini()
+        del spmd, data
+        log(f"[daemons_py] (b) copy {json.dumps(report['placed']['copy'])}")
+
+    # (d) the resilient control plane, and (e) QoS, on three daemons.
+    report["resilient"] = _resilient_plane(device, gen, handles, heartbeat_s,
+                                           election_budget_s, counted)
+    report["qos"] = report["resilient"].pop("qos")
+    report["no_card"]["pids"] += report["resilient"].pop("no_card")["pids"]
+    report["resilient"].pop("pids")
+    log(f"[daemons_py] (f) no daemon holds the card: {json.dumps(report['no_card'])}")
+    with local_cluster(1) as cl:  # the native daemon declines QoS
+        c = cl.client(0, config=dc.replace(ocm.OcmConfig(), priority=PRIO_LOW))
+        native_caps = c._ctrl_caps
+    if native_caps & FLAG_CAP_QOS:
+        raise AssertionError("the native daemon granted FLAG_CAP_QOS")
+    report["qos"]["native_caps"] = native_caps
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[daemons_py] phase {report['seconds']:.3f} s; launches {launches}")
+    return report
+
+
+def _kv_through_daemons(device, engine, ctx, kv, counted, check_launches) -> dict:
+    """Check (c) of phase 8b: one request of ``kv`` = (prompt, greedy)
+    tokens through ``BucketedPagedDecoder`` (refetch) with its pages
+    REMOTE_DEVICE, then REMOTE_HOST, on the daemons; logits and tokens equal
+    the unpaged ``decode_step`` bit for bit; each REMOTE_DEVICE page stored
+    is one K1 launch and each fetched one K2 launch (the plane's ``ici_put``
+    and ``ici_get`` spans count the page moves); REMOTE_HOST pages ride the
+    wire and launch neither."""
+    from oncilla_tpu_torch.models import llama
+    from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
+
+    cfg, params, page_tokens = engine["cfg"], engine["params"], engine["page_tokens"]
+    prompt_len, n_gen = kv
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, prompt_len)).to(device)
+    npages = (prompt_len + n_gen) // page_tokens
+    out, ref_ids, ref = {}, None, None
+    for kind in ("REMOTE_DEVICE", "REMOTE_HOST"):
+        moves0 = [GLOBAL_TRACER.stats(s).count for s in ("ici_put", "ici_get")]
+        t = time.perf_counter()
+        (ids, logits, shipped), rose = counted(lambda: serve_request(
+            params, cfg, ctx, prompt, n_gen, page_tokens, kind))
+        seconds = time.perf_counter() - t
+        stored, fetched = (GLOBAL_TRACER.stats(s).count - m
+                           for s, m in zip(("ici_put", "ici_get"), moves0))
+        if shipped != npages:
+            raise AssertionError(f"{kind}: {shipped} pages shipped, want {npages}")
+        want = ((npages, npages * (npages + 1) // 2) if kind == "REMOTE_DEVICE"
+                else (0, 0))
+        if (stored, fetched) != want:
+            raise AssertionError(f"{kind}: {stored} page stores and {fetched} "
+                                 f"fetches on the plane, want {want}")
+        if check_launches and (rose["write_rows"], rose["read_rows"]) != want:
+            raise AssertionError(f"{kind}: launches {rose}, want write_rows, "
+                                 f"read_rows = {want}")
+        if ref is None:
+            ref_ids, ref = ids, reference_logits(params, cfg, ids)
+        if not torch.equal(ids, ref_ids):
+            raise AssertionError(f"{kind}: greedy tokens differ")
+        if not torch.equal(logits, ref):
+            err = float((logits.float() - ref.float()).abs().max())
+            raise AssertionError(f"{kind}: logits differ from the unpaged "
+                                 f"decode (max |d| {err})")
+        greedy = llama.greedy(ref[prompt_len - 1:-1])
+        if not torch.equal(greedy, ids[prompt_len:]):
+            raise AssertionError(f"{kind}: tokens are not the reference's greedy")
+        out[kind] = {"tok_s": (prompt_len + n_gen) / seconds, "seconds": seconds,
+                     "pages": shipped, "page_stores": stored,
+                     "page_fetches": fetched, "launches": rose}
+        log(f"[daemons_py] (c) {kind}: {json.dumps(out[kind])}")
+    return out
+
+
+def _healthy_cluster(n: int, *, host_arena_bytes: int, heartbeat_s: float,
+                     out: dict, attempts: int = 3):
+    """``n`` Python daemons with ``PY_RESILIENT_ENV`` whose members all
+    stand: rank 0 leads at epoch 0, nobody is fenced and every probe
+    answers. A daemon that starts listening later than two of the leader's
+    probe intervals after the leader's first probe (importing torch takes
+    seconds) is declared DEAD and then recovers, and the epoch has moved:
+    the fast detector cannot tell a peer still starting from one that was
+    killed (the JAX package's daemon does the same). Such a start is not
+    the clean cluster check (d) assumes; it is thrown away and the cluster
+    started again. The starts taken stand in ``out["starts"]``."""
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+    from oncilla_tpu_torch.runtime.cluster import LocalCluster
+
+    for attempt in range(1, attempts + 1):
+        cl = LocalCluster(n, daemon="python", host_arena_bytes=host_arena_bytes,
+                          device_arena_bytes=64 * MiB, heartbeat_s=heartbeat_s,
+                          lease_s=300.0, env=PY_RESILIENT_ENV)
+        time.sleep(10 * heartbeat_s)  # several probe rounds after the join
+        c = ControlPlaneClient(cl.entries, 0, heartbeat=False)
+        try:
+            res = {r: c.status(r)["resilience"] for r in range(n)}
+        finally:
+            c.close()
+        healthy = all(x["leader"] == 0 and x["epoch"] == 0 and not x["fenced"]
+                      and set(x["peers"].values()) <= {"ALIVE"}
+                      for x in res.values())
+        out["starts"] = attempt
+        if healthy:
+            return cl
+        log(f"[daemons_py] start {attempt} of {n} daemons came up with a "
+            f"rank declared dead while starting; starting again: {res}")
+        cl.stop()
+    raise AssertionError(f"{attempts} starts of {n} daemons, none healthy")
+
+
+def _resilient_plane(device, gen, handles, heartbeat_s: float,
+                     budget_s: float, counted) -> dict:
+    """Checks (d) and (e) of phase 8b, on three Python daemons with
+    ``PY_RESILIENT_ENV``, the app on rank 1."""
+    import dataclasses as dc
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.qos.policy import PRIO_LOW
+    from oncilla_tpu_torch.runtime.protocol import (
+        FLAG_CAP_QOS,
+        FLAG_REPLICAS,
+        WIRE_KIND,
+    )
+
+    count, nb = handles
+    out = {}
+    cl = _healthy_cluster(3, host_arena_bytes=64 * MiB + 4 * count * nb,
+                          heartbeat_s=heartbeat_s, out=out)
+    with cl:
+        out["pids"] = cl.pids()
+        no_card = _holds_no_card(cl.pids())
+        ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=1,
+                                         host_arena_bytes=64 * MiB,
+                                         device_arena_bytes=64 * MiB),
+                           device=device)
+        pid = ctx._remote.pid
+        addr = lambda r: (cl.entries[r].connect_host, cl.entries[r].port)  # noqa: E731
+        # 16 replicated REMOTE_HOST handles (k = 2 rides the REQ_ALLOC's
+        # FLAG_REPLICAS tail, as the JAX client sends it; the port's client
+        # asks for replicas with ROADMAP A 2.4), bytes put from the card.
+        hs, datas = [], []
+        for _ in range(count):
+            r = _frame(addr(1), "REQ_ALLOC", {
+                "orig_rank": 1, "pid": pid, "kind": WIRE_KIND["remote_host"],
+                "nbytes": nb}, bytes([2]), FLAG_REPLICAS)
+            if r.type.name != "ALLOC_RESULT":
+                raise AssertionError(f"replicated REQ_ALLOC refused: {r}")
+            h = _remote_host_handle(r.fields, 1)
+            data = torch.empty(nb, dtype=torch.uint8, device=device).random_(
+                0, 256, generator=gen)
+            ctx.put(h, data)
+            hs.append(h)
+            datas.append(data.cpu())
+        by_rank = {r: sum(h.rank == r for h in hs) for r in range(3)}
+        if not by_rank[0]:
+            raise AssertionError(f"no primary on rank 0 to fail over: {by_rank}")
+        # SIGKILL the leader; ranks 1 and 2 must agree on its successor.
+        t_kill = time.perf_counter()
+        cl.kill(0)
+        seen = None
+        while True:
+            try:
+                res = {r: ctx.status(r)["resilience"] for r in (1, 2)}
+                lead = res[1]["leader"]
+                if (lead in (1, 2) and res[2]["leader"] == lead
+                        and res[lead]["is_leader"]
+                        and min(x["leader_epoch"] for x in res.values()) >= 1):
+                    seen = res
+                    break
+            except (OSError, ocm.OcmError):
+                pass
+            if time.perf_counter() - t_kill > budget_s:
+                raise AssertionError(f"no agreed leader {budget_s} s after the "
+                                     f"kill: {res}")
+            time.sleep(0.01)
+        election_s = time.perf_counter() - t_kill
+        lead = seen[1]["leader"]
+        log(f"[daemons_py] (d) rank 0 SIGKILLed; ranks 1 and 2 agree on leader "
+            f"{lead} at epoch {seen[1]['leader_epoch']} after {election_s:.3f} s")
+        # New allocations land on the survivors.
+        for _ in range(4):
+            x = ctx.alloc(nb, OcmKind.REMOTE_HOST)
+            if x.rank == 0:
+                raise AssertionError("an allocation placed on the dead rank")
+            data = torch.empty(nb, dtype=torch.uint8, device=device).random_(
+                0, 256, generator=gen)
+            ctx.put(x, data)
+            if not torch.equal(ctx.get(x).to(device), data):
+                raise AssertionError("a new allocation after the election differs")
+            ctx.free(x)
+        # Every handle's bytes: a surviving primary through the client; a
+        # dead one's through the replica the leader promoted, located with
+        # REQ_LOCATE and read with DATA_GET by protocol frames.
+        located = {}
+        for h, data in zip(hs, datas):
+            if h.rank != 0:
+                if not torch.equal(ctx.get(h).cpu(), data):
+                    raise AssertionError(f"handle {h.alloc_id} on rank {h.rank} differs")
+                continue
+            t1 = time.perf_counter()
+            while True:
+                loc = _frame(addr(lead), "REQ_LOCATE", {"alloc_id": h.alloc_id})
+                got = None
+                if loc.type.name == "LOCATE_OK" and loc.fields["rank"] != 0:
+                    got = _frame((loc.fields["host"], loc.fields["port"]), "DATA_GET",
+                                 {"alloc_id": h.alloc_id, "offset": 0, "nbytes": nb})
+                    if got.type.name == "DATA_GET_OK":
+                        break
+                if time.perf_counter() - t1 > budget_s:
+                    raise AssertionError(f"handle {h.alloc_id}: no promoted "
+                                         f"replica serves it: {loc} {got}")
+                time.sleep(0.02)
+            if not torch.equal(torch.frombuffer(bytearray(got.data), dtype=torch.uint8),
+                               data):
+                raise AssertionError(f"handle {h.alloc_id}: the promoted replica "
+                                     f"on rank {loc.fields['rank']} differs")
+            located[h.alloc_id] = loc.fields["rank"]
+        counters = {r: ctx.status(r)["resilience"]["failover"] for r in (1, 2)}
+        out.update({"election_s": election_s, "leader": lead,
+                    "leader_epoch": seen[1]["leader_epoch"], "primaries": by_rank,
+                    "located": sorted(set(located.values())),
+                    "failover": counters, "budget_s": budget_s,
+                    "no_card": no_card})
+        log(f"[daemons_py] (d) {count} handles byte-equal: {by_rank[1] + by_rank[2]} "
+            f"through their primaries, {by_rank[0]} through the promoted "
+            f"replicas on {out['located']}; failover {json.dumps(counters)}")
+
+        # (e) QoS granted: a PRIO_LOW client's CONNECT and its profile.
+        c = cl.client(1, config=dc.replace(ocm.OcmConfig(), priority=PRIO_LOW),
+                      app_id=pid + (1 << 32))
+        if not c._ctrl_caps & FLAG_CAP_QOS:
+            raise AssertionError("the Python daemon did not grant FLAG_CAP_QOS")
+        apps = c.status()["qos"]["apps"]
+        app = apps.get(f"{c.pid}@r1")
+        if app is None or app["priority"] != PRIO_LOW:
+            raise AssertionError(f"the PRIO_LOW profile is not in STATUS: {apps}")
+        out["qos"] = {"caps": c._ctrl_caps, "app": {k: app[k] for k in (
+            "priority", "quota_bytes", "quota_handles")}}
+        log(f"[daemons_py] (e) PRIO_LOW granted FLAG_CAP_QOS; STATUS profile "
+            f"{json.dumps(out['qos']['app'])}")
+        ctx.tini()
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -2319,10 +2875,13 @@ def main(argv=None) -> int:
     log(f"[engine] checks a-f passed; launches {engine_launches}; phase "
         f"{time.perf_counter() - t:.3f} s")
 
-    # Phase 8 runs here, while the weights are on the card for its run F.
+    # Phase 8 runs here, while the weights are on the card for its run F,
+    # and phase 8b for its check (c).
     wire = phase_wire(device, engine={"cfg": cfg, "params": params,
                                       "page_tokens": ENGINE_PAGE_TOKENS,
                                       "runs": engine["runs"]})
+    daemons_py = phase_daemons_py(device, wire=wire, engine={
+        "cfg": cfg, "params": params, "page_tokens": PAGE_TOKENS})
     del params
     torch.cuda.empty_cache()
 
@@ -2347,6 +2906,7 @@ def main(argv=None) -> int:
 
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "serving_engine": engine_launches, "wire": wire["launches"],
+                 "daemon_py": daemons_py["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -2395,6 +2955,9 @@ def main(argv=None) -> int:
         "wire": {k: wire[k] for k in ("build_s", "alloc_p50_us", "free_p50_us",
                                       "rates", "placed", "errors", "engine",
                                       "seconds")},
+        "daemons_py": {k: daemons_py[k] for k in (
+            "remote_host", "placed", "kv", "resilient", "qos", "no_card",
+            "seconds")},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",

@@ -1,10 +1,19 @@
-"""Offset-based arena suballocator: pure bookkeeping, no backing storage.
+"""The port's copy of ``oncilla_tpu/core/arena.py``, line for line, so both
+packages hand out identical offsets for the same sequence of requests.
 
-A first-fit free-list with coalescing over one fixed byte range, the same
-algorithm as ``oncilla_tpu.core.arena`` line for line, so both packages hand
-out identical offsets for the same sequence of requests (the parity tests
-hold them to it). Backing storage lives in :mod:`.hbm` (device) and
-:mod:`.hostmem` (host).
+Offset-based arena suballocator.
+
+The reference "registers" one fixed buffer per allocation with the NIC
+(ibv_reg_mr, reference src/rdma_server.c:109-118; rma2_register,
+reference src/extoll_server.c:83) and addresses it with (va, rkey) or
+(node, vpid, NLA). On TPU the analogue of registration is a single
+pre-allocated **arena** per memory space (one jax.Array per chip's HBM, one
+pinned host buffer per TPU-VM host) that peers may address by
+``(node, device, offset, nbytes)``. This module is the pure bookkeeping:
+a first-fit free-list suballocator with coalescing, no backing storage.
+
+Backing storage lives in :mod:`oncilla_tpu_torch.core.hbm` (device) and
+:mod:`oncilla_tpu_torch.core.hostmem` (host).
 """
 
 from __future__ import annotations
@@ -13,11 +22,8 @@ import bisect
 import threading
 from dataclasses import dataclass
 
-from oncilla_tpu_torch.core.errors import (
-    OcmBoundsError,
-    OcmInvalidHandle,
-    OcmOutOfMemory,
-)
+from oncilla_tpu_torch.analysis import alloctrace
+from oncilla_tpu_torch.core.errors import OcmBoundsError, OcmInvalidHandle, OcmOutOfMemory
 
 
 def _align_up(x: int, a: int) -> int:
@@ -43,7 +49,11 @@ class Extent:
 
 
 class ArenaAllocator:
-    """Thread-safe first-fit free-list allocator over a fixed byte range."""
+    """First-fit free-list allocator over a fixed-size byte range.
+
+    Thread-safe: the daemon serves concurrent allocation requests the way the
+    reference served one thread per request (reference src/mem.c:437).
+    """
 
     def __init__(self, capacity: int, alignment: int = 512):
         if capacity <= 0:
@@ -52,11 +62,16 @@ class ArenaAllocator:
             raise ValueError("alignment must be a positive power of two")
         self.capacity = capacity
         self.alignment = alignment
+        # OCM_ALLOCTRACE ledger scope; extents are keyed by offset (unique
+        # while live, exactly like the free-list's own bookkeeping).
+        self._trace_scope = f"arena:{id(self):#x}"
         self._lock = threading.Lock()
         # Sorted list of free (offset, nbytes) spans, coalesced.
         self._free: list[tuple[int, int]] = [(0, capacity)]
         # offset -> nbytes for live extents (for validation on free).
         self._live: dict[int, int] = {}
+
+    # -- queries ---------------------------------------------------------
 
     @property
     def bytes_free(self) -> int:
@@ -73,6 +88,8 @@ class ArenaAllocator:
         with self._lock:
             return len(self._live)
 
+    # -- alloc / free ----------------------------------------------------
+
     def alloc(self, nbytes: int) -> Extent:
         if nbytes <= 0:
             raise ValueError("nbytes must be positive")
@@ -85,10 +102,36 @@ class ArenaAllocator:
                     else:
                         self._free[i] = (off + need, span - need)
                     self._live[off] = need
+                    alloctrace.note_alloc(self._trace_scope, off, nbytes)
                     return Extent(offset=off, nbytes=nbytes)
         raise OcmOutOfMemory(
             f"arena of {self.capacity} B cannot fit {nbytes} B "
             f"({self.bytes_free} B free, fragmented into {len(self._free)} spans)"
+        )
+
+    def reserve(self, offset: int, nbytes: int) -> Extent:
+        """Claim a specific extent (snapshot restore): carve
+        [offset, offset+aligned) out of the free list."""
+        if nbytes <= 0:
+            raise ValueError("nbytes must be positive")
+        if offset % self.alignment:
+            raise OcmInvalidHandle(f"offset {offset} not aligned")
+        need = _align_up(nbytes, self.alignment)
+        with self._lock:
+            for i, (off, span) in enumerate(self._free):
+                if off <= offset and offset + need <= off + span:
+                    self._free.pop(i)
+                    if off < offset:
+                        self._free.insert(i, (off, offset - off))
+                        i += 1
+                    tail = (off + span) - (offset + need)
+                    if tail:
+                        self._free.insert(i, (offset + need, tail))
+                    self._live[offset] = need
+                    alloctrace.note_alloc(self._trace_scope, offset, nbytes)
+                    return Extent(offset=offset, nbytes=nbytes)
+        raise OcmInvalidHandle(
+            f"cannot reserve [{offset}, {offset + need}): overlaps live extent"
         )
 
     def free(self, extent: Extent) -> None:
@@ -99,17 +142,20 @@ class ArenaAllocator:
                     f"free of unknown or already-freed extent at offset {extent.offset}"
                 )
             self._insert_free(extent.offset, need)
+        alloctrace.note_free(self._trace_scope, extent.offset)
 
     def _insert_free(self, off: int, span: int) -> None:
         # Insert keeping sorted order, then coalesce with neighbors.
         i = bisect.bisect_left(self._free, (off, 0))
         self._free.insert(i, (off, span))
+        # Coalesce with next.
         if i + 1 < len(self._free):
             noff, nspan = self._free[i + 1]
             if off + span == noff:
                 self._free[i] = (off, span + nspan)
                 self._free.pop(i + 1)
                 span += nspan
+        # Coalesce with previous.
         if i > 0:
             poff, pspan = self._free[i - 1]
             if poff + pspan == off:
@@ -117,7 +163,9 @@ class ArenaAllocator:
                 self._free.pop(i)
 
     def reset(self) -> None:
-        """Drop all live extents."""
+        """Drop all live extents (daemon teardown path, analogue of
+        dealloc-all at SIGINT, reference src/main.c:170-184)."""
         with self._lock:
             self._free = [(0, self.capacity)]
             self._live.clear()
+        alloctrace.drop_scope(self._trace_scope)

@@ -75,3 +75,44 @@ class OcmDeviceError(OcmError):
     """The requested device is not there: CUDA was asked for (explicitly or
     by default) on a machine without it. Never answered by falling back to
     the CPU."""
+
+
+class OcmReplicaUnavailable(OcmError):
+    """A replicated write could not reach a replica that is not (yet)
+    declared DEAD — the primary refuses to ack a put it cannot make
+    durable on the chain (wire: ErrCode.REPLICA_UNAVAILABLE, retryable)."""
+
+
+class OcmNotPrimary(OcmError):
+    """A replica holder refused a client data op because it still
+    believes its primary alive (wire: ErrCode.NOT_PRIMARY, retryable —
+    the failover window closes when the death verdict lands)."""
+
+
+class OcmMoved(OcmError):
+    """The allocation was live-migrated off this rank (elastic/): the
+    source holds a forwarding tombstone naming the new owner (wire:
+    ErrCode.MOVED, retryable; ``rank`` rides as an i64 data tail on the
+    ERROR frame and clients repoint their handle at it)."""
+
+    def __init__(self, detail: str, rank: int):
+        super().__init__(detail)
+        self.rank = int(rank)
+
+
+class OcmDeadlineExceeded(OcmError):
+    """The op's time budget ran out (resilience/timebudget.py) — locally
+    (a retry ladder clamped to zero remaining) or remotely (a daemon
+    refused already-expired work; wire: ErrCode.DEADLINE_EXCEEDED). Not
+    retryable: the budget is the caller's own contract, and surfacing it
+    typed is the whole point — a decode step that misses its token
+    budget sheds instead of hanging the batch."""
+
+
+class OcmBreakerOpen(OcmConnectError):
+    """A per-peer circuit breaker is OPEN (resilience/timebudget.py):
+    consecutive transport/deadline failures flipped the peer and this
+    attempt failed FAST instead of eating the op's budget. A subclass of
+    OcmConnectError on purpose — failover ladders treat it exactly like
+    an unreachable peer and walk to the next candidate; half-open probes
+    re-admit the peer once it answers again."""

@@ -53,7 +53,7 @@ class PagedKVCache:
     cfg: LlamaConfig
     batch: int
     page_tokens: int = 128
-    kind: OcmKind = OcmKind.LOCAL_DEVICE
+    kind: OcmKind = OcmKind.REMOTE_DEVICE
     dtype: str = "float32"
     pages: list[OcmAlloc] = field(default_factory=list)
     # Registered receive buffer for host-kind fetches (pinned on a CUDA
@@ -88,8 +88,9 @@ class PagedKVCache:
 
     def _recv_slots(self, npages: int) -> torch.Tensor | None:
         """One reusable receive buffer with a page-sized slot per page, for
-        host kinds; None for device kinds (their gets stay on the card)."""
-        if self.kind != OcmKind.LOCAL_HOST:
+        host kinds (LOCAL_HOST, and REMOTE_HOST pages off the wire); None
+        for device kinds (their gets stay on the card)."""
+        if self.kind not in (OcmKind.REMOTE_HOST, OcmKind.LOCAL_HOST):
             return None
         need = self.page_bytes * npages
         if self._recvbuf is None or self._recvbuf.numel() < need:
@@ -364,7 +365,7 @@ class BucketedPagedDecoder:
         backend,
         batch: int = 1,
         page_tokens: int = 16,
-        kind: OcmKind = OcmKind.LOCAL_DEVICE,
+        kind: OcmKind = OcmKind.REMOTE_DEVICE,
         dtype: str = "float32",
         refetch: bool = False,
         graphs: StepGraphs | None = None,
@@ -490,7 +491,7 @@ class PagedDecoder:
         backend,
         batch: int = 1,
         page_tokens: int = 16,
-        kind: OcmKind = OcmKind.LOCAL_DEVICE,
+        kind: OcmKind = OcmKind.REMOTE_DEVICE,
         dtype: str = "float32",
     ):
         self.params = params

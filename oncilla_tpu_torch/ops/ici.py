@@ -77,6 +77,11 @@ class IciDataPlane:
         g = resolve_global_device(handle, self.devices_per_rank, len(self.arenas))
         return self.arenas[g]
 
+    def device_of(self, handle: OcmAlloc) -> torch.device:
+        """The device of the arena ``handle`` addresses (where the plane
+        server runs a relayed op)."""
+        return self._arena(handle).device
+
     def put(self, handle: OcmAlloc, data, offset: int = 0) -> None:
         """One-sided write: bytes from any device into the owner's arena."""
         arena = self._arena(handle)

@@ -1,15 +1,27 @@
-"""The port's cluster launcher: builds its own copy of the native daemon
-(``runtime/native/``, the ``oncillamemd`` of the JAX package: its code
-line for line, only comments that named the reference's own paths
-reworded) and runs daemons on loopback as subprocesses, the subprocess form of
-``oncilla_tpu/runtime/cluster.py``.
+"""The port's cluster launchers: daemons on loopback, in two forms.
 
-The port never imports the daemon: it reaches it over the wire, as any
-app does, so one daemon and one wire serve both packages.
+- :class:`LocalCluster` / :func:`local_cluster` run daemons as
+  subprocesses, the subprocess form of ``oncilla_tpu/runtime/cluster.py``.
+  ``daemon="native"`` (the default) builds and runs the port's copy of the
+  native daemon (``runtime/native/``, the ``oncillamemd`` of the JAX
+  package: its code line for line, only comments that named the
+  reference's own paths reworded); ``daemon="python"`` runs the port's
+  Python daemon, ``python -m oncilla_tpu_torch.runtime.daemon <nodefile>
+  --rank r``, which also serves replicas, failover, leader election, hash
+  placement, QoS, mux, the shm fabric, elastic membership, snapshots and
+  the FROZEN tier; its ``OCM_*`` knobs ride ``env``.
+- :class:`InProcessCluster` / :func:`inprocess_cluster` hold N
+  :class:`~.daemon.Daemon` objects in this process, the form of the JAX
+  package's ``LocalCluster``, with ``kill(rank)`` and ``restart(rank)``.
+
+Apps reach every daemon over the wire, so one daemon and one wire serve
+both packages.
 
     with local_cluster(2, ndevices=2, device_arena_bytes=row) as cl:
         ctx = cl.context(0, ici_plane=plane)   # or ocm_init(OcmConfig(
         ...                                    #   nodefile=cl.nodefile, rank=0))
+    with local_cluster(3, daemon="python",
+                       env={"OCM_REPLICAS": "2"}) as cl: ...
 
 :func:`build_daemon` needs a C++ compiler (``g++``, ``c++`` or
 ``clang++``); without one it raises, and nothing falls back.
@@ -23,6 +35,7 @@ import os
 import shutil
 import socket
 import subprocess
+import sys
 import tempfile
 import time
 from contextlib import contextmanager
@@ -42,6 +55,10 @@ _CXXFLAGS = ("-std=c++17", "-Wall", "-Wextra", "-pthread", "-O2")
 # Rank 0's placement policy, and how long the daemons get to join.
 _POLICY = "capacity"
 _START_TIMEOUT_S = 30.0
+# A Python daemon imports the package (and so torch) before it listens:
+# a few seconds each, all ranks at once.
+_PY_START_TIMEOUT_S = 90.0
+_REPO = Path(__file__).resolve().parents[2]
 
 
 def _fingerprint(cxx: str) -> str:
@@ -143,19 +160,29 @@ def _per_rank(value, n: int) -> list:
 
 
 class LocalCluster:
-    """``n`` native daemons on loopback ports, with per-rank client and
-    context factories. ``host_arena_bytes`` may be one size or one per
-    rank; the daemons' lease is ``lease_s``, by default the config's, and
-    their reaper ticks every ``heartbeat_s`` (the daemon's 5 s default).
-    Daemon output goes to ``<workdir>/daemon<rank>.log``."""
+    """``n`` daemons on loopback ports as subprocesses, with per-rank client
+    and context factories. ``daemon`` picks the native daemon's copy
+    (default) or the port's Python daemon. ``host_arena_bytes`` may be one
+    size or one per rank; the daemons' lease is ``lease_s``, by default
+    the config's, and their reaper ticks every ``heartbeat_s`` (the
+    daemon's 5 s default). ``env`` adds ``OCM_*`` knobs to the daemons'
+    environment. Daemon output goes to ``<workdir>/daemon<rank>.log``."""
 
     def __init__(self, n: int, *, ndevices: int = 1,
                  host_arena_bytes=64 << 20, device_arena_bytes: int = 64 << 20,
                  lease_s: float | None = None, heartbeat_s: float | None = None,
-                 config=None):
+                 config=None, daemon: str = "native",
+                 env: dict | None = None):
         from oncilla_tpu_torch.utils.config import OcmConfig
 
-        binary = build_daemon()
+        if daemon not in ("native", "python"):
+            raise ValueError(f"daemon must be 'native' or 'python' (got {daemon!r})")
+        if daemon == "native":
+            prog = [str(build_daemon())]
+            start_timeout = _START_TIMEOUT_S
+        else:
+            prog = [sys.executable, "-m", "oncilla_tpu_torch.runtime.daemon"]
+            start_timeout = _PY_START_TIMEOUT_S
         self.config = config or OcmConfig()
         if lease_s is None:
             lease_s = self.config.lease_s
@@ -168,10 +195,19 @@ class LocalCluster:
         self.procs: list[subprocess.Popen] = []
         self.clients: list = []
         host_bytes = _per_rank(host_arena_bytes, n)
+        proc_env = dict(os.environ)
+        proc_env.update(env or {})
+        if daemon == "python":
+            proc_env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (str(_REPO), proc_env.get("PYTHONPATH")) if p)
         try:
             # Rank 0 first: the others join it with ADD_NODE.
             for r in range(n):
-                cmd = [str(binary), "--nodefile", self.nodefile, "--rank", str(r),
+                if daemon == "native":
+                    args = ["--nodefile", self.nodefile, "--rank", str(r)]
+                else:
+                    args = [self.nodefile, "--rank", str(r)]
+                cmd = [*prog, *args,
                        "--policy", _POLICY, "--ndevices", str(ndevices),
                        "--host-arena-bytes", str(host_bytes[r]),
                        "--device-arena-bytes", str(device_arena_bytes),
@@ -181,8 +217,8 @@ class LocalCluster:
                 with open(self.workdir / f"daemon{r}.log", "wb") as log:
                     self.procs.append(subprocess.Popen(
                         cmd, stdout=log, stderr=subprocess.STDOUT,
-                        stdin=subprocess.DEVNULL))
-            self._wait_joined(_START_TIMEOUT_S)
+                        stdin=subprocess.DEVNULL, env=proc_env))
+            self._wait_joined(start_timeout)
         except BaseException:
             self.stop()
             raise
@@ -236,6 +272,23 @@ class LocalCluster:
                    remote=self.client(rank, ici_plane=ici_plane, **kw),
                    device=device)
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def kill(self, rank: int) -> None:
+        """SIGKILL one daemon: the crashed-owner case (no snapshot, no
+        drain)."""
+        p = self.procs[rank]
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+    def pids(self) -> list[int]:
+        return [p.pid for p in self.procs]
+
     def stop(self) -> None:
         """Close the clients, then stop every daemon (SIGTERM, then SIGKILL
         after 5 s) and remove the work directory."""
@@ -257,6 +310,89 @@ class LocalCluster:
 @contextmanager
 def local_cluster(n: int, **kw):
     c = LocalCluster(n, **kw)
+    try:
+        yield c
+    finally:
+        c.stop()
+
+
+class InProcessCluster:
+    """N port :class:`~.daemon.Daemon` objects on ephemeral loopback ports
+    in this process, with per-rank client and context factories: the form
+    of the JAX package's ``oncilla_tpu.runtime.cluster.LocalCluster``."""
+
+    def __init__(self, nnodes: int, config=None, policy: str = "capacity",
+                 ndevices: int = 1):
+        from oncilla_tpu_torch.analysis.lockwatch import make_lock
+        from oncilla_tpu_torch.runtime.daemon import Daemon
+        from oncilla_tpu_torch.utils.config import OcmConfig
+
+        self.config = config or OcmConfig()
+        self._policy = policy
+        self._ndevices = ndevices
+        self.entries = [NodeEntry(r, "127.0.0.1", 0) for r in range(nnodes)]
+        self.daemons: list = []
+        # Rank 0 first, so ADD_NODE from the others lands.
+        for r in range(nnodes):
+            d = Daemon(r, self.entries, config=self.config, policy=policy,
+                       ndevices=ndevices)
+            d.start()
+            self.daemons.append(d)
+        self.clients: list = []
+        self._lock = make_lock("cluster._lock")
+
+    def client(self, rank: int, ici_plane=None, heartbeat: bool = True,
+               config=None, app_id: int | None = None):
+        from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+
+        c = ControlPlaneClient(self.entries, rank, config=config or self.config,
+                               ici_plane=ici_plane, heartbeat=heartbeat,
+                               app_id=app_id)
+        with self._lock:
+            self.clients.append(c)
+        return c
+
+    def context(self, rank: int, ici_plane=None, device=None, **kw):
+        """An ``Ocm`` whose remote arms ride this cluster."""
+        from oncilla_tpu_torch.core.context import Ocm
+
+        return Ocm(config=self.config,
+                   remote=self.client(rank, ici_plane=ici_plane, **kw),
+                   device=device)
+
+    def kill(self, rank: int) -> None:
+        """Hard-kill one daemon (no snapshot, no drain). The object stays
+        in ``daemons`` so :meth:`stop` (idempotent) still runs."""
+        self.daemons[rank].kill()
+
+    def restart(self, rank: int):
+        """Hard-kill one daemon and start a fresh incarnation on the same
+        address; only what the FROZEN tier put on disk survives."""
+        from oncilla_tpu_torch.analysis import alloctrace
+        from oncilla_tpu_torch.runtime.daemon import Daemon
+
+        old = self.daemons[rank]
+        old.kill()
+        alloctrace.drop_scope(old._trace_scope)
+        alloctrace.drop_scope(old.host_arena.allocator._trace_scope)
+        d = Daemon(rank, self.entries, config=self.config,
+                   policy=self._policy, ndevices=self._ndevices)
+        d.start()
+        self.daemons[rank] = d
+        return d
+
+    def stop(self) -> None:
+        with self._lock:
+            clients, self.clients = self.clients, []
+        for c in clients:
+            c.close()
+        for d in self.daemons:
+            d.stop()
+
+
+@contextmanager
+def inprocess_cluster(nnodes: int, **kw):
+    c = InProcessCluster(nnodes, **kw)
     try:
         yield c
     finally:

@@ -1,7 +1,10 @@
 """The port's daemon client held against the JAX package's, on the JAX
 package's in-process cluster (``oncilla_tpu.runtime.cluster.local_cluster``,
-Python daemons on loopback ports). The test imports both packages; the
-port's client speaks to the JAX daemons over the wire only.
+Python daemons on loopback ports). Every case that starts a cluster runs
+twice (the ``daemons`` fixture): on the JAX package's daemons and on the
+port's (``[port]``: the port's ``Daemon`` in place of the JAX one). The
+test imports both packages; both clients speak to the daemons over the
+wire only.
 
 - REMOTE_HOST alloc / put / get / free: the same handles (id, kind, rank,
   device, offset) as a JAX client's on a fresh cluster, the same bytes,
@@ -37,6 +40,7 @@ from oncilla_tpu_torch.ops.ici import SpmdIciPlane as TPlane
 from oncilla_tpu_torch.runtime.client import ControlPlaneClient as TClient
 from oncilla_tpu_torch.runtime.membership import NodeEntry as TEntry
 from oncilla_tpu_torch.runtime.protocol import ErrCode
+from test_torch_daemon import use_port_daemon
 
 J, T = jocm.OcmKind, tocm.OcmKind
 KINDS = ["LOCAL_HOST", "LOCAL_DEVICE", "REMOTE_HOST", "REMOTE_DEVICE"]
@@ -71,6 +75,25 @@ class Clients:
         c = TClient(entries(cl), rank, config=config or tcfg(), **kw)
         self.open.append(c)
         return c
+
+
+DAEMONS = ("jax", "port")
+
+
+def pytest_generate_tests(metafunc):
+    """Every case that starts a cluster runs twice: on the JAX package's
+    Python daemons and on the port's (its ``Daemon`` put in place of the
+    JAX one by ``test_torch_daemon.use_port_daemon``)."""
+    if "jax_cluster" in metafunc.function.__code__.co_names:
+        metafunc.parametrize("daemons", DAEMONS, indirect=True)
+
+
+@pytest.fixture(autouse=True)
+def daemons(request, monkeypatch):
+    impl = getattr(request, "param", "jax")
+    if impl == "port":
+        use_port_daemon(monkeypatch)
+    return impl
 
 
 @pytest.fixture

@@ -221,3 +221,168 @@ def test_kv_decode_harness_on_cpu():
     assert all(v > 0 for v in out["tok_s"].values())
     assert out["overhead_vs"] == "fused"
     assert set(out["paging_overhead"]) == {"device", "host", "device_fused"}
+
+
+# -- KV pages on the port's daemons (counterparts of tests/test_kv_paging.py) --
+#
+# All on the port's in-process cluster (``InProcessCluster``: port daemons,
+# port config, port client). Logits are held within the JAX test's
+# atol = rtol = 2e-3 of the JAX package's ``reference_decode``, and bit for
+# bit to the port's own LOCAL_DEVICE paged decode on the same inputs.
+
+from test_kv_paging import CFG as JCFG  # noqa: E402
+from test_kv_paging import reference_decode  # noqa: E402
+
+from oncilla_tpu_torch.ops.ici import IciDataPlane as TIciPlane  # noqa: E402
+from oncilla_tpu_torch.ops.ici import SpmdIciPlane as TSpmdPlane  # noqa: E402
+from oncilla_tpu_torch.runtime.cluster import inprocess_cluster  # noqa: E402
+
+TCFG = tllama.LlamaConfig.tiny()
+
+
+def _port_params(seed):
+    j = jllama.init_params(jax.random.key(seed), JCFG)
+    return j, tllama.params_from_jax({k: np.asarray(v) for k, v in j.items()},
+                                     device="cpu")
+
+
+def _tokens(rng, n):
+    return rng.integers(0, JCFG.vocab, size=(1, n), dtype=np.int32)
+
+
+def _local_paged(tp, toks, make, **kw):
+    """The port's own LOCAL_DEVICE paged decode of the same tokens."""
+    ctx = tocm.ocm_init(tocm.OcmConfig(host_arena_bytes=32 << 20,
+                                       device_arena_bytes=32 << 20),
+                        device="cpu")
+    try:
+        dec = make(tp, TCFG, ctx, kind=tocm.OcmKind.LOCAL_DEVICE, **kw)
+        out = [dec.step(torch.from_numpy(toks[:, i]))
+               for i in range(toks.shape[1])]
+        dec.close()
+        return torch.stack(out)
+    finally:
+        ctx.tini()
+
+
+def _rt_cfg(**kw):
+    d = dict(host_arena_bytes=32 << 20, device_arena_bytes=32 << 20)
+    d.update(kw)
+    return tocm.OcmConfig(**d)
+
+
+@pytest.mark.parametrize("kind", ["REMOTE_HOST", "REMOTE_DEVICE"])
+def test_paged_decode_on_port_daemons_matches_reference(rng, kind):
+    jp, tp = _port_params(3)
+    toks = _tokens(rng, 24)
+    want = reference_decode(jp, jnp.asarray(toks))
+    cfg_rt = _rt_cfg()
+    kind = tocm.OcmKind[kind]
+    with inprocess_cluster(2, config=cfg_rt, ndevices=4) as cl:
+        plane = TIciPlane(config=cfg_rt, devices=["cpu"] * 8,
+                          devices_per_rank=4)
+        ctx = cl.context(0, ici_plane=plane, device="cpu")
+        dec = tkv.PagedDecoder(tp, TCFG, ctx, batch=1, page_tokens=8,
+                               kind=kind)
+        got = torch.stack([dec.step(torch.from_numpy(toks[:, i]))
+                           for i in range(24)])
+        # 24 tokens / page 8 => 2+ pages shipped to the daemons.
+        assert len(dec.cache.pages) >= 2
+        for h in dec.cache.pages:
+            assert h.kind == kind and h.is_remote
+        dec.close()
+        assert sum(d.registry.live_count() for d in cl.daemons) == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
+    local = _local_paged(tp, toks, tkv.PagedDecoder, batch=1, page_tokens=8)
+    assert torch.equal(got, local)
+
+
+def test_paged_decoder_frees_pages_on_port_daemons():
+    _, tp = _port_params(4)
+    with inprocess_cluster(2, config=_rt_cfg()) as cl:
+        ctx = cl.context(0, device="cpu")
+        dec = tkv.PagedDecoder(tp, TCFG, ctx, page_tokens=4,
+                               kind=tocm.OcmKind.REMOTE_HOST)
+        for i in range(9):
+            dec.step(torch.tensor([i % TCFG.vocab]))
+        assert cl.daemons[1].registry.live_count() == len(dec.cache.pages) > 0
+        dec.close()
+        assert cl.daemons[1].registry.live_count() == 0
+
+
+@pytest.mark.parametrize("refetch,n", [(False, 21), (True, 20)])
+def test_bucketed_decode_on_port_daemons_matches_reference(rng, refetch, n):
+    jp, tp = _port_params(5 if not refetch else 6)
+    toks = _tokens(rng, n)
+    want = reference_decode(jp, jnp.asarray(toks))
+    with inprocess_cluster(2, config=_rt_cfg()) as cl:
+        ctx = cl.context(0, device="cpu")
+        dec = tkv.BucketedPagedDecoder(tp, TCFG, ctx, batch=1, page_tokens=8,
+                                       kind=tocm.OcmKind.REMOTE_HOST,
+                                       refetch=refetch)
+        got = torch.stack([dec.step(torch.from_numpy(toks[:, i]))
+                           for i in range(n)])
+        assert len(dec.cache.pages) == n // 8
+        for h in dec.cache.pages:
+            assert h.is_remote
+        if refetch:  # REMOTE_HOST pages land in the registered receive slots
+            assert dec.cache._recvbuf is not None
+        dec.close()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
+    local = _local_paged(tp, toks, tkv.BucketedPagedDecoder, batch=1,
+                         page_tokens=8, refetch=refetch)
+    assert torch.equal(got, local)
+
+
+def test_paged_decode_through_spmd_plane_on_port_daemons(rng):
+    """REMOTE_DEVICE pages on a CPU ``SpmdIciPlane`` placed by the port's
+    daemons: page stores are plane puts, fetches plane gets."""
+    jp, tp = _port_params(5)
+    toks = _tokens(rng, 16)
+    want = reference_decode(jp, jnp.asarray(toks))
+    cfg_rt = _rt_cfg(device_arena_bytes=64 << 10)
+    with inprocess_cluster(2, config=cfg_rt, ndevices=4) as cl:
+        plane = TSpmdPlane(config=cfg_rt, mesh=["cpu"] * 8, devices_per_rank=4)
+        ctx = cl.context(0, ici_plane=plane, device="cpu")
+        dec = tkv.PagedDecoder(tp, TCFG, ctx, batch=1, page_tokens=8,
+                               kind=tocm.OcmKind.REMOTE_DEVICE)
+        got = torch.stack([dec.step(torch.from_numpy(toks[:, i]))
+                           for i in range(16)])
+        assert len(dec.cache.pages) >= 1
+        assert plane.stats["puts"] >= 1  # pages rode the fabric out
+        ks, vs = dec.cache.fetch_pages()
+        assert plane.stats["gets"] >= 1
+        assert ks.shape[3] == dec.cache.tokens_paged
+        dec.close()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
+    local = _local_paged(tp, toks, tkv.PagedDecoder, batch=1, page_tokens=8)
+    assert torch.equal(got, local)
+
+
+def test_default_kind_and_receive_slots_match_jax():
+    """Each package's default-built cache and decoders name the same kind
+    (REMOTE_DEVICE), and both give REMOTE_HOST pages receive slots."""
+    jc = jkv.PagedKVCache(None, JCFG, 1)
+    tc = tkv.PagedKVCache(None, TCFG, 1)
+    assert jc.kind.name == tc.kind.name == "REMOTE_DEVICE"
+    for name in ("PagedDecoder", "BucketedPagedDecoder"):
+        import inspect
+
+        jd = inspect.signature(getattr(jkv, name)).parameters["kind"].default
+        td = inspect.signature(getattr(tkv, name)).parameters["kind"].default
+        assert jd.name == td.name == "REMOTE_DEVICE"
+    ctx = tocm.ocm_init(tocm.OcmConfig(host_arena_bytes=1 << 20,
+                                       device_arena_bytes=1 << 20),
+                        device="cpu")
+    try:
+        for kind in ("LOCAL_HOST", "REMOTE_HOST", "LOCAL_DEVICE",
+                     "REMOTE_DEVICE"):
+            j = jkv.PagedKVCache(None, JCFG, 1, page_tokens=4,
+                                 kind=jocm.OcmKind[kind])
+            t = tkv.PagedKVCache(ctx, TCFG, 1, page_tokens=4,
+                                 kind=tocm.OcmKind[kind])
+            assert (j._recv_slots(2) is None) == (t._recv_slots(2) is None)
+            if t._recv_slots(2) is not None:
+                assert t._recv_slots(2).numel() == j._recv_slots(2).nbytes
+    finally:
+        ctx.tini()
