@@ -120,16 +120,40 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    and tokens equal the unpaged ``decode_step`` bit for bit, one K1 launch
    a REMOTE_DEVICE page stored and one K2 a page fetched, tokens/s for
    each. On three, with standby masters, hash placement, 2 replicas and a
-   fast detector: (d) 16 replicated 2 MiB REMOTE_HOST handles put from
-   card tensors, the leader SIGKILLed, ranks 1 and 2 agree on its
-   successor at a higher epoch within a stated budget (the election time
-   printed), new allocations land, every handle reads back byte for byte
-   (a dead primary's through its promoted replica, by REQ_LOCATE and
-   DATA_GET frames); (e) a PRIO_LOW client's CONNECT is granted
+   fast detector: (d) 16 REMOTE_HOST handles of 2 MiB, replicated by the
+   client (``OcmConfig(replicas=2)``), put from card tensors, the leader
+   SIGKILLed, ranks 1 and 2 agree on its successor at a higher epoch within
+   a stated budget (the election time printed), new allocations land, every
+   handle reads back byte for byte through ``ctx.get`` (a dead primary's by
+   the client's failover to its promoted replica, which the handle then
+   names); (e) a PRIO_LOW client's CONNECT is granted
    FLAG_CAP_QOS and its profile shows in STATUS, where the native daemon
    declines; (f) no daemon pid is among ``nvidia-smi``'s compute apps, and
    no daemon holds the card's device nodes open (this process, which holds
    a context, is the positive control).
+8c. client — the client halves of the daemons' features, right after 8b
+   while the weights are on the card. On two Python daemons sized as 8b's
+   pair, serving the shm fabric: (a) an ``OCM_MUX=1`` app puts and gets
+   REMOTE_HOST card tensors at 4 KiB, a page, 256 MiB and 1 GiB, whole and
+   at offsets, byte for byte; GB/s at a page and 1 GiB (median of 5) and
+   alloc/free p50 over 200 beside a blocking client's; 64 tenants in this
+   process hold one channel a peer; AsyncOcm's 32 concurrent 2 MiB gets,
+   their aggregate GB/s, every page checked; a mux client against two
+   native daemons runs lockstep, byte for byte; (b) an ``OCM_FABRIC=shm``
+   app selects shm (its fabric map, the daemon's STATUS counters), 1 GiB of
+   card tensors byte for byte with GB/s beside (a)'s tcp, ACK coalescing
+   granted on tcp and the tuner's plan printed; (e) runs H (E's settings)
+   and I (C's) with the COLD tier on rank 1 behind a PRIO_LOW mux client, 2
+   WARM pages: H's prefetcher async, every COLD page of the sync and the
+   AsyncOcm leg the bytes put, I's tokens C's bit for bit, H's E's by the
+   margin rule, HOT puts/gets the K1/K2 launches, tokens/s beside C, E, F,
+   G. On three with 8b (d)'s control plane, the app with ``replicas=2`` and
+   ``OCM_HEDGE_MS=25``: (d) a handle's primary SIGSTOPped, a get returns
+   byte for byte from the replica with the handle unchanged (its time
+   printed), a put with ``deadline_ms=400`` raises ``OcmDeadlineExceeded``
+   within its budget and 1.6 s, SIGCONT; (c) that primary SIGKILLed, a put
+   and a get on the handle work and its rank moves to the promoted replica,
+   all 16 handles read back through ``ctx.get``.
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -918,6 +942,9 @@ def phase_engine(device, cfg, params, *, page_tokens: int, runs=ENGINE_RUNS,
                          graphs="engine" if shipped else graphs,
                          profile_steps=profile_steps if name in "BC" else 0,
                          timed=not shipped, **kw)
+            wrap = getattr(cold_backend, "wrap_prefetcher", None)
+            if wrap is not None:
+                wrap(eng.prefetcher)
             journal.clear()
             if on_card:
                 torch.cuda.synchronize(device)
@@ -1785,13 +1812,26 @@ class CheckedCold:
 
     def __init__(self, client):
         self.client = client
-        self.checked = self.mismatched = 0
+        self.checked = self.mismatched = self.async_checked = 0
         self._shadow: dict = {}
         self._mu = threading.Lock()
+
+    def __getattr__(self, name):
+        # What else the engine reads of its cold client (a mux client's
+        # runtime, rows, rank and config, for the AsyncOcm prefetch leg).
+        return getattr(self.client, name)
 
     @property
     def transfers(self) -> dict:
         return self.client.transfers
+
+    def wrap_prefetcher(self, prefetcher) -> None:
+        """Check the pages of a prefetcher's AsyncOcm leg too: they come
+        through the mux runtime's own AsyncOcm, not through this client,
+        and are compared on the event loop as each lands (``async_checked``
+        counts them)."""
+        if prefetcher._aocm is not None:
+            prefetcher._aocm = _CheckedAsync(prefetcher._aocm, self)
 
     def _page(self, handle) -> torch.Tensor:
         with self._mu:
@@ -1821,17 +1861,37 @@ class CheckedCold:
     def get_into(self, handle, out, offset: int = 0):
         return self._check(handle, self.client.get_into(handle, out, offset), offset)
 
-    def _check(self, handle, got: torch.Tensor, offset: int) -> torch.Tensor:
+    def _check(self, handle, got: torch.Tensor, offset: int,
+               leg: str = "checked") -> torch.Tensor:
         flat = got.reshape(-1).cpu()
         same = torch.equal(flat, self._page(handle)[offset:offset + flat.numel()])
         with self._mu:
-            self.checked += 1
+            setattr(self, leg, getattr(self, leg) + 1)
             self.mismatched += not same
         return got
 
 
+class _CheckedAsync:
+    """An ``AsyncOcm`` whose every get is compared, host bytes only, with
+    the bytes :class:`CheckedCold` kept for the handle."""
+
+    def __init__(self, inner, cold: CheckedCold):
+        self.inner, self.cold = inner, cold
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    async def get(self, handle, nbytes=None, offset: int = 0, out=None, **kw):
+        got = await self.inner.get(handle, nbytes, offset, out=out, **kw)
+        flat = torch.from_numpy(np.asarray(got)) if not isinstance(
+            got, torch.Tensor) else got
+        self.cold._check(handle, flat, offset, leg="async_checked")
+        return got
+
+
 def check_remote_cold(ref: dict, runs: dict, cold, drained: list,
-                      check_launches: bool = True) -> dict:
+                      check_launches: bool = True, names=("F", "G"),
+                      mode: str = "thread") -> dict:
     """Check (e) of phase 8: runs F (E's settings) and G (C's) with the COLD
     tier behind ``cold``, against phase 5b's E and C (``ref``). G's tokens
     equal C's bit for bit (its seating is C's: tier placement changes no
@@ -1840,46 +1900,61 @@ def check_remote_cold(ref: dict, runs: dict, cold, drained: list,
     (a :class:`CheckedCold`) served is the bytes put; the COLD tier is
     remote in both, its puts and gets the client's wire transfers; every
     HOT put and get one K1/K2 launch; no allocation left (``drained``).
-    Returns the report."""
-    f, g = runs["F"], runs["G"]
+    Phase 8c's runs H and I (``names``) are held the same way, H's
+    prefetcher in ``mode`` "async" with every page its AsyncOcm leg read
+    checked too. Returns the report."""
+    fn, gn = names
+    f, g = runs[fn], runs[gn]
     emitted = sum(len(v) for v in ref["C"]["out"].values())
     wire = {op: f["io"]["remote"][op] + g["io"]["remote"][op] for op in ("put", "get")}
     f_vs_e = _margin_check(ref["E"]["rows"], f["rows"])
+    fl, gl = fn.lower(), gn.lower()
     out = {
         "tok_s": {"C": ref["C"]["tok_s"], "E": ref["E"]["tok_s"],
-                  "F": f["tok_s"], "G": g["tok_s"]},
-        "g_vs_c_tokens_equal": sum(
+                  fn: f["tok_s"], gn: g["tok_s"]},
+        f"{gl}_vs_c_tokens_equal": sum(
             x == y for t in ref["C"]["out"]
             for x, y in zip(ref["C"]["out"][t], g["out"].get(t, []))),
-        "f_vs_e_tokens_equal": sum(
+        f"{fl}_vs_e_tokens_equal": sum(
             x == y for t in ref["E"]["out"]
             for x, y in zip(ref["E"]["out"][t], f["out"].get(t, []))),
-        "tokens": emitted, "f_vs_e": f_vs_e, "f_t0_vs_t1": f["t0_vs_t1"],
+        "tokens": emitted, f"{fl}_vs_e": f_vs_e, f"{fl}_t0_vs_t1": f["t0_vs_t1"],
         "cold_sim": [f["cold_sim"], g["cold_sim"]],
-        "cold_io": {"F": f["io"]["remote"], "G": g["io"]["remote"]},
+        "cold_io": {fn: f["io"]["remote"], gn: g["io"]["remote"]},
         "client_transfers": dict(cold.transfers),
-        "cold_pages_checked": cold.checked, "cold_pages_mismatched": cold.mismatched,
-        "hot_io": {"F": f["hot_io"], "G": g["hot_io"]},
+        "cold_pages_checked": cold.checked,
+        "cold_pages_checked_async": cold.async_checked,
+        "cold_pages_mismatched": cold.mismatched,
+        "hot_io": {fn: f["hot_io"], gn: g["hot_io"]},
         "launches": {n: {k: r["launches"][k] for k in ("write_rows", "read_rows")}
-                     for n, r in (("F", f), ("G", g))},
-        "moves": {"F": f["moves"], "G": g["moves"]},
+                     for n, r in ((fn, f), (gn, g))},
+        "moves": {fn: f["moves"], gn: g["moves"]},
         "prefetch": f["prefetch"], "drained": drained,
     }
     if g["out"] != ref["C"]["out"]:
-        raise AssertionError(f"run G's tokens differ from run C's: "
-                             f"{out['g_vs_c_tokens_equal']} of {emitted}")
-    for name, d in (("F against E", f_vs_e), ("F's t1 against t0", f["t0_vs_t1"])):
+        raise AssertionError(f"run {gn}'s tokens differ from run C's: "
+                             f"{out[f'{gl}_vs_c_tokens_equal']} of {emitted}")
+    for name, d in ((f"{fn} against E", f_vs_e),
+                    (f"{fn}'s t1 against t0", f["t0_vs_t1"])):
         _hold_margin(name, d)
     if cold.mismatched or cold.checked != wire["get"]:
         raise AssertionError(f"COLD pages read back over the wire: "
                              f"{cold.checked} checked of {wire['get']}, "
+                             f"{cold.async_checked} on the AsyncOcm leg, "
                              f"{cold.mismatched} not the bytes put")
-    if f["emitted"] != emitted or f["prefetch"]["mode"] != "thread":
-        raise AssertionError(f"run F: {f['emitted']} tokens, prefetch {f['prefetch']}")
-    for name, r in (("F", f), ("G", g)):
+    if mode == "async" and not 0 < cold.async_checked <= f["prefetch"]["issued"]:
+        raise AssertionError(f"run {fn}'s AsyncOcm leg: {cold.async_checked} pages "
+                             f"checked of {f['prefetch']['issued']} prefetches")
+    if f["emitted"] != emitted or f["prefetch"]["mode"] != mode:
+        raise AssertionError(f"run {fn}: {f['emitted']} tokens, prefetch "
+                             f"{f['prefetch']}, want mode {mode}")
+    for name, r in ((fn, f), (gn, g)):
         io = r["io"]["remote"]
-        if r["cold_sim"] or not (io["put"] > 0 and io["get"] > 0):
-            raise AssertionError(f"run {name}'s COLD tier is not remote: {io}")
+        # An async run may read every COLD page on its AsyncOcm leg.
+        gets = io["get"] + (cold.async_checked if name == fn else 0)
+        if r["cold_sim"] or not (io["put"] > 0 and gets > 0):
+            raise AssertionError(f"run {name}'s COLD tier is not remote: {io}, "
+                                 f"{gets} COLD reads in all")
         if check_launches and (r["launches"]["write_rows"], r["launches"]["read_rows"]) \
                 != (r["hot_io"]["put"], r["hot_io"]["get"]):
             raise AssertionError(f"run {name}: K1/K2 launches {r['launches']} != "
@@ -1930,34 +2005,6 @@ PY_RESILIENT_ENV = {
 # tick or two to act on the verdict, the election's broadcast; two orders
 # of magnitude of slack for a loaded host.
 PY_ELECTION_BUDGET_S = 15.0
-
-
-def _frame(addr, mtype: str, fields: dict, data=b"", flags: int = 0):
-    """One request on a connection of its own; the reply, ERROR included,
-    is returned, not raised."""
-    import socket
-
-    from oncilla_tpu_torch.runtime.protocol import Message, MsgType, recv_msg, send_msg
-
-    with socket.create_connection(addr, timeout=30.0) as s:
-        send_msg(s, Message(MsgType[mtype], fields, data, flags))
-        return recv_msg(s)
-
-
-def _remote_host_handle(fields: dict, origin_rank: int):
-    """The port's handle for an ALLOC_RESULT got by a raw frame."""
-    import oncilla_tpu_torch as ocm
-    from oncilla_tpu_torch.core.arena import Extent
-
-    h = ocm.OcmAlloc(alloc_id=fields["alloc_id"],
-                     kind=ocm.OcmKind.REMOTE_HOST, fabric=ocm.Fabric.DCN,
-                     nbytes=fields["nbytes"], rank=fields["rank"],
-                     device_index=0,
-                     extent=Extent(fields["offset"], fields["nbytes"]),
-                     origin_rank=origin_rank)
-    h.owner_addr = (fields["owner_host"], fields["owner_port"])
-    h.daemon_owned = True
-    return h
 
 
 def _card_fds(pid: int) -> list[str]:
@@ -2021,8 +2068,8 @@ def phase_daemons_py(device, *, wire=None, engine=None, row_bytes: int = WIRE_RO
     K2 a page fetched; (d) three daemons with ``PY_RESILIENT_ENV``: the
     leader SIGKILLed, ranks 1 and 2 agree on its successor within
     ``election_budget_s``, allocations land, every handle's bytes read
-    back (those whose primary died through its promoted replica, found by
-    REQ_LOCATE); (e) a PRIO_LOW client's CONNECT granted FLAG_CAP_QOS, its
+    back through ``ctx.get`` (those whose primary died by the client's
+    failover to its promoted replica); (e) a PRIO_LOW client's CONNECT granted FLAG_CAP_QOS, its
     profile in the daemon's STATUS, where the native daemon declines; (f)
     no daemon holds the card (:func:`_holds_no_card`). Raises on the first
     check that fails."""
@@ -2070,48 +2117,11 @@ def phase_daemons_py(device, *, wire=None, engine=None, row_bytes: int = WIRE_RO
             f"{cl.pids()})")
 
         # (a) REMOTE_HOST, byte for byte; GB/s and alloc/free p50.
-        def remote_host():
-            for n in sizes:
-                h = ctx.alloc(n, OcmKind.REMOTE_HOST)
-                if h.rank != 1:
-                    raise AssertionError(f"REMOTE_HOST {n} B placed on rank {h.rank}")
-                data = torch.empty(n, dtype=torch.uint8, device=device).random_(
-                    0, 256, generator=gen)
-                ctx.put(h, data)
-                if not torch.equal(ctx.get(h).to(device), data):
-                    raise AssertionError(f"REMOTE_HOST {n} B through the Python "
-                                         "daemons: get differs from put")
-                ctx.free(h)
-                del data
-        counted(remote_host)
-        lat = {"alloc": [], "free": []}
-        for _ in range(alloc_iters):
-            t1 = time.perf_counter()
-            x = ctx.alloc(4096, OcmKind.REMOTE_HOST)
-            t2 = time.perf_counter()
-            ctx.free(x)
-            lat["alloc"].append(t2 - t1)
-            lat["free"].append(time.perf_counter() - t2)
-        rates = []
-        for n in timed:
-            r = ctx.alloc(n, OcmKind.REMOTE_HOST)
-            card = torch.empty(n, dtype=torch.uint8, device=device).random_(
-                0, 256, generator=gen)
-            out = torch.empty(n, dtype=torch.uint8, device=device)
-            rec = {"nbytes": n, "reps": reps,
-                   "put_from_card_gbps": n / _median_s(lambda: ctx.put(r, card),
-                                                       reps, device) / 1e9,
-                   "get_to_card_gbps": n / _median_s(lambda: ctx.get(r, out=out),
-                                                     reps, device) / 1e9}
-            if not torch.equal(out, card):
-                raise AssertionError(f"timed REMOTE_HOST {n} B: bytes differ")
-            rates.append(rec)
-            ctx.free(r)
-            del card, out
+        counted(lambda: _remote_host_legs(ctx, device, gen, sizes,
+                                          "the Python daemons", rank=1))
         report["remote_host"] = {
-            "sizes": list(sizes), "rates": rates, "start_s": start_s,
-            "alloc_p50_us": statistics.median(lat["alloc"]) * 1e6,
-            "free_p50_us": statistics.median(lat["free"]) * 1e6}
+            "sizes": list(sizes), "start_s": start_s,
+            **_rates(ctx, device, gen, timed, reps, alloc_iters)}
         if wire is not None:
             report["remote_host"]["native"] = {
                 "rates": [{k: r[k] for k in ("nbytes", "put_from_card_gbps",
@@ -2309,11 +2319,7 @@ def _resilient_plane(device, gen, handles, heartbeat_s: float,
     import oncilla_tpu_torch as ocm
     from oncilla_tpu_torch import OcmKind
     from oncilla_tpu_torch.qos.policy import PRIO_LOW
-    from oncilla_tpu_torch.runtime.protocol import (
-        FLAG_CAP_QOS,
-        FLAG_REPLICAS,
-        WIRE_KIND,
-    )
+    from oncilla_tpu_torch.runtime.protocol import FLAG_CAP_QOS
 
     count, nb = handles
     out = {}
@@ -2324,21 +2330,17 @@ def _resilient_plane(device, gen, handles, heartbeat_s: float,
         no_card = _holds_no_card(cl.pids())
         ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=1,
                                          host_arena_bytes=64 * MiB,
-                                         device_arena_bytes=64 * MiB),
+                                         device_arena_bytes=64 * MiB,
+                                         replicas=2),
                            device=device)
         pid = ctx._remote.pid
-        addr = lambda r: (cl.entries[r].connect_host, cl.entries[r].port)  # noqa: E731
-        # 16 replicated REMOTE_HOST handles (k = 2 rides the REQ_ALLOC's
-        # FLAG_REPLICAS tail, as the JAX client sends it; the port's client
-        # asks for replicas with ROADMAP A 2.4), bytes put from the card.
+        # 16 replicated REMOTE_HOST handles (the client asks for k = 2 with
+        # REQ_ALLOC's FLAG_REPLICAS tail), bytes put from the card.
         hs, datas = [], []
         for _ in range(count):
-            r = _frame(addr(1), "REQ_ALLOC", {
-                "orig_rank": 1, "pid": pid, "kind": WIRE_KIND["remote_host"],
-                "nbytes": nb}, bytes([2]), FLAG_REPLICAS)
-            if r.type.name != "ALLOC_RESULT":
-                raise AssertionError(f"replicated REQ_ALLOC refused: {r}")
-            h = _remote_host_handle(r.fields, 1)
+            h = ctx.alloc(nb, OcmKind.REMOTE_HOST)
+            if not h.replica_ranks:
+                raise AssertionError(f"handle {h.alloc_id} is not replicated")
             data = torch.empty(nb, dtype=torch.uint8, device=device).random_(
                 0, 256, generator=gen)
             ctx.put(h, data)
@@ -2381,33 +2383,20 @@ def _resilient_plane(device, gen, handles, heartbeat_s: float,
             if not torch.equal(ctx.get(x).to(device), data):
                 raise AssertionError("a new allocation after the election differs")
             ctx.free(x)
-        # Every handle's bytes: a surviving primary through the client; a
-        # dead one's through the replica the leader promoted, located with
-        # REQ_LOCATE and read with DATA_GET by protocol frames.
+        # Every handle's bytes through the client: a dead primary's by the
+        # client's failover ladder, which reaches the replica the leader
+        # promoted and repoints the handle at it.
         located = {}
         for h, data in zip(hs, datas):
-            if h.rank != 0:
-                if not torch.equal(ctx.get(h).cpu(), data):
-                    raise AssertionError(f"handle {h.alloc_id} on rank {h.rank} differs")
-                continue
-            t1 = time.perf_counter()
-            while True:
-                loc = _frame(addr(lead), "REQ_LOCATE", {"alloc_id": h.alloc_id})
-                got = None
-                if loc.type.name == "LOCATE_OK" and loc.fields["rank"] != 0:
-                    got = _frame((loc.fields["host"], loc.fields["port"]), "DATA_GET",
-                                 {"alloc_id": h.alloc_id, "offset": 0, "nbytes": nb})
-                    if got.type.name == "DATA_GET_OK":
-                        break
-                if time.perf_counter() - t1 > budget_s:
-                    raise AssertionError(f"handle {h.alloc_id}: no promoted "
-                                         f"replica serves it: {loc} {got}")
-                time.sleep(0.02)
-            if not torch.equal(torch.frombuffer(bytearray(got.data), dtype=torch.uint8),
-                               data):
-                raise AssertionError(f"handle {h.alloc_id}: the promoted replica "
-                                     f"on rank {loc.fields['rank']} differs")
-            located[h.alloc_id] = loc.fields["rank"]
+            dead = h.rank == 0
+            if not torch.equal(ctx.get(h).cpu(), data):
+                raise AssertionError(f"handle {h.alloc_id} (primary rank "
+                                     f"{0 if dead else h.rank}) differs")
+            if dead:
+                if h.rank == 0:
+                    raise AssertionError(f"handle {h.alloc_id} still names the "
+                                         "dead rank 0")
+                located[h.alloc_id] = h.rank
         counters = {r: ctx.status(r)["resilience"]["failover"] for r in (1, 2)}
         out.update({"election_s": election_s, "leader": lead,
                     "leader_epoch": seen[1]["leader_epoch"], "primaries": by_rank,
@@ -2415,8 +2404,9 @@ def _resilient_plane(device, gen, handles, heartbeat_s: float,
                     "failover": counters, "budget_s": budget_s,
                     "no_card": no_card})
         log(f"[daemons_py] (d) {count} handles byte-equal: {by_rank[1] + by_rank[2]} "
-            f"through their primaries, {by_rank[0]} through the promoted "
-            f"replicas on {out['located']}; failover {json.dumps(counters)}")
+            f"through their primaries, {by_rank[0]} through the client's "
+            f"failover to the promoted replicas on {out['located']}; failover "
+            f"{json.dumps(counters)}")
 
         # (e) QoS granted: a PRIO_LOW client's CONNECT and its profile.
         c = cl.client(1, config=dc.replace(ocm.OcmConfig(), priority=PRIO_LOW),
@@ -2433,6 +2423,460 @@ def _resilient_plane(device, gen, handles, heartbeat_s: float,
             f"{json.dumps(out['qos']['app'])}")
         ctx.tini()
     return out
+
+
+# -- phase 8c ---------------------------------------------------------------
+
+# The client halves of the daemons' features, on the port's Python daemons:
+# (a) the mux runtime and AsyncOcm, (b) the shm fabric, (e) the engine over
+# a mux cold client, on a pair sized as phase 8b's with OCM_FABRIC=shm; (d)
+# hedges and deadlines and (c) replication through the client on a trio
+# with phase 8b (d)'s resilient control plane.
+CLIENT_TENANTS = 64
+CLIENT_ASYNC = (32, 2 * MiB)  # (a): AsyncOcm's concurrent gets, their size
+CLIENT_HEDGE_MS = 25
+# (d): the budget of a put to a stopped primary, and what it may run past
+# it: the ladder's last attempt, a locate, the typed raise. The JAX
+# package's own test allows 1.6 s past a 0.4 s budget.
+CLIENT_DEADLINE_MS = 400
+CLIENT_DEADLINE_SLACK_S = 1.6
+
+
+def _remote_host_legs(ctx, device, gen, sizes, what: str,
+                      rank: int | None = None) -> None:
+    """REMOTE_HOST of card tensors at ``sizes`` (placed on ``rank`` when
+    given): put and got back whole, at an offset into a card tensor, and
+    put at an offset; byte for byte."""
+    from oncilla_tpu_torch import OcmKind
+
+    for n in sizes:
+        h = ctx.alloc(n, OcmKind.REMOTE_HOST)
+        if rank is not None and h.rank != rank:
+            raise AssertionError(f"{what}: REMOTE_HOST {n} B placed on rank "
+                                 f"{h.rank}, not {rank}")
+        data = torch.empty(n, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen)
+        ctx.put(h, data)
+        if not torch.equal(ctx.get(h).to(device), data):
+            raise AssertionError(f"{what}: REMOTE_HOST {n} B get differs from put")
+        off = min(4096 + 100, n // 2)
+        into = torch.empty(n - off, dtype=torch.uint8, device=device)
+        if not torch.equal(ctx.get(h, offset=off, out=into), data[off:]):
+            raise AssertionError(f"{what}: REMOTE_HOST {n} B get(out=card) at {off}")
+        half = (n - off) // 2
+        ctx.put(h, data[:half], offset=off)
+        if not torch.equal(ctx.get(h, half, offset=off).to(device), data[:half]):
+            raise AssertionError(f"{what}: REMOTE_HOST {n} B put at offset {off}")
+        ctx.free(h)
+        del data, into
+
+
+def _rates(ctx, device, gen, timed, reps: int, alloc_iters: int) -> dict:
+    """Put from / get to a card tensor at ``timed`` (median of ``reps``) and
+    alloc/free p50 over ``alloc_iters``, through ``ctx``."""
+    from oncilla_tpu_torch import OcmKind
+
+    out = {"rates": []}
+    lat = {"alloc": [], "free": []}
+    for _ in range(alloc_iters):
+        t1 = time.perf_counter()
+        x = ctx.alloc(4096, OcmKind.REMOTE_HOST)
+        t2 = time.perf_counter()
+        ctx.free(x)
+        lat["alloc"].append(t2 - t1)
+        lat["free"].append(time.perf_counter() - t2)
+    out["alloc_p50_us"] = statistics.median(lat["alloc"]) * 1e6
+    out["free_p50_us"] = statistics.median(lat["free"]) * 1e6
+    for n in timed:
+        r = ctx.alloc(n, OcmKind.REMOTE_HOST)
+        card = torch.empty(n, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen)
+        back = torch.empty(n, dtype=torch.uint8, device=device)
+        out["rates"].append({
+            "nbytes": n, "reps": reps,
+            "put_from_card_gbps": n / _median_s(lambda: ctx.put(r, card),
+                                                reps, device) / 1e9,
+            "get_to_card_gbps": n / _median_s(lambda: ctx.get(r, out=back),
+                                              reps, device) / 1e9})
+        if not torch.equal(back, card):
+            raise AssertionError(f"timed REMOTE_HOST {n} B: bytes differ")
+        ctx.free(r)
+        del card, back
+    return out
+
+
+def _client_ctx(cl, device, app_id: int, **cfg):
+    """A context at rank 0 of ``cl`` whose client is configured by ``cfg``
+    and has an app identity of its own; closed by the caller."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+
+    config = ocm.OcmConfig(host_arena_bytes=64 * MiB, device_arena_bytes=64 * MiB,
+                           **cfg)
+    client = ControlPlaneClient(cl.entries, 0, config=config, app_id=app_id)
+    return ocm.Ocm(config=config, remote=client, device=device), client
+
+
+def _mux_checks(cl, device, gen, *, sizes, timed, reps, alloc_iters, tenants,
+                async_gets) -> tuple:
+    """Check (a) of phase 8c on ``cl``: the mux app's REMOTE_HOST legs and
+    figures beside a blocking client's, ``tenants`` tenants on one channel
+    a peer, AsyncOcm's concurrent gets. Returns (report, the blocking
+    context and client, kept open for (b))."""
+    import asyncio
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.runtime import mux
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+
+    pid = os.getpid()
+    ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=0, mux=True,
+                                     host_arena_bytes=64 * MiB,
+                                     device_arena_bytes=64 * MiB), device=device)
+    client = ctx._remote
+    if client._mux is None:
+        raise AssertionError("OCM_MUX=1 did not give a mux client")
+    _remote_host_legs(ctx, device, gen, sizes, "mux", rank=1)
+    blk, blk_client = _client_ctx(cl, device, pid + (2 << 32))
+    _remote_host_legs(blk, device, gen, sizes[:2], "blocking", rank=1)
+    out = {"sizes": list(sizes),
+           "mux": _rates(ctx, device, gen, timed, reps, alloc_iters),
+           "blocking": _rates(blk, device, gen, timed, reps, alloc_iters)}
+    log(f"[client] (a) mux REMOTE_HOST at {list(sizes)} B byte-equal; mux "
+        f"{json.dumps(out['mux'])}; blocking {json.dumps(out['blocking'])}")
+
+    # Many tenants, one channel per peer.
+    many = [ControlPlaneClient(cl.entries, 0, config=client.config,
+                               heartbeat=False, app_id=pid + (3 << 32) + i)
+            for i in range(tenants)]
+    try:
+        hs = [t.alloc(64 * KiB, OcmKind.REMOTE_HOST) for t in many]
+        for i, (t, h) in enumerate(zip(many, hs)):
+            t.put(h, torch.full((64 * KiB,), i % 251, dtype=torch.uint8,
+                                device=device))
+        for i, (t, h) in enumerate(zip(many, hs)):
+            got = t.get(h, 64 * KiB)
+            if int(got.min()) != i % 251 or int(got.max()) != i % 251:
+                raise AssertionError(f"tenant {i} read another tenant's bytes")
+        stats = mux.runtime_stats()
+        if stats["fds"] != len(cl.entries):
+            raise AssertionError(f"{tenants} tenants hold {stats['fds']} "
+                                 f"channels, want one a peer ({len(cl.entries)})")
+        for t, h in zip(many, hs):
+            t.free(h)
+    finally:
+        for t in many:
+            t.close()
+    out["tenants"] = {"tenants": tenants, "fds": stats["fds"],
+                      "peers": len(cl.entries), "ops": stats["ops"],
+                      "peak_inflight": stats["peak_inflight"]}
+    log(f"[client] (a) {tenants} tenants: {json.dumps(out['tenants'])}")
+
+    # AsyncOcm: concurrent gets on the runtime's loop, into pinned buffers.
+    count, nb = async_gets
+    rt = client._mux
+    hs = [ctx.alloc(nb, OcmKind.REMOTE_HOST) for _ in range(count)]
+    pages = [torch.empty(nb, dtype=torch.uint8, device=device).random_(
+        0, 256, generator=gen) for _ in hs]
+    for h, p in zip(hs, pages):
+        ctx.put(h, p)
+    outs = [torch.empty(nb, dtype=torch.uint8,
+                        pin_memory=device.type == "cuda") for _ in hs]
+    dests = [o.numpy() for o in outs]
+    aocm = rt.run(mux.AsyncOcm.open(client.entries, client.rank,
+                                    config=client.config, channels=rt.channels,
+                                    app_id=pid + (4 << 32), heartbeat=False))
+
+    async def gets():
+        await asyncio.gather(*(aocm.get(h, nb, 0, out=d)
+                               for h, d in zip(hs, dests)))
+
+    try:
+        secs = _median_s(lambda: rt.run(gets()), reps, torch.device("cpu"))
+    finally:
+        rt.run(aocm.aclose(detach=True))
+    for i, (o, p) in enumerate(zip(outs, pages)):
+        if not torch.equal(o.to(device), p):
+            raise AssertionError(f"AsyncOcm get {i} of {count} differs")
+    for h in hs:
+        ctx.free(h)
+    out["async"] = {"gets": count, "nbytes": nb, "reps": reps,
+                    "aggregate_gbps": count * nb / secs / 1e9}
+    log(f"[client] (a) AsyncOcm: {json.dumps(out['async'])}")
+    ctx.tini()
+    del pages, outs, dests
+    return out, blk, blk_client
+
+
+def _native_lockstep(device, gen) -> dict:
+    """Check (a)'s last part: a mux client against two native daemons, which
+    decline FLAG_CAP_MUX by silence, runs lockstep over its one connection
+    a peer, byte for byte."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+    from oncilla_tpu_torch.runtime.cluster import local_cluster
+
+    with local_cluster(2) as nl:
+        c = ControlPlaneClient(nl.entries, 0, config=ocm.OcmConfig(mux=True),
+                               heartbeat=False, app_id=os.getpid() + (5 << 32))
+        try:
+            ch = c._mux.open_sync(c._ctrl_addr)
+            h = c.alloc(PAGE, OcmKind.REMOTE_HOST)
+            data = torch.empty(PAGE, dtype=torch.uint8, device=device).random_(
+                0, 256, generator=gen)
+            c.put(h, data)
+            same = torch.equal(c.get(h, PAGE).to(device), data)
+            c.free(h)
+            out = {"muxed": ch.muxed, "lockstep": ch.counters["lockstep"],
+                   "bytes_equal": same, "rank": h.rank}
+        finally:
+            c.close()
+    if out["muxed"] or not same:
+        raise AssertionError(f"mux client against the native pair: {out}")
+    log(f"[client] (a) native pair: {json.dumps(out)}")
+    return out
+
+
+def _fabric_checks(cl, device, gen, blk_client, *, nbytes: int, reps: int) -> dict:
+    """Check (b): an ``OCM_FABRIC=shm`` app selects shm against the pair
+    (its fabric map and the daemon's STATUS counters), moves card tensors
+    of ``nbytes`` byte for byte and times them; the blocking tcp client of
+    (a) was granted ACK coalescing, and its tuner's plan is printed."""
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.runtime.protocol import FLAG_CAP_COALESCE
+
+    fctx, fclient = _client_ctx(cl, device, os.getpid() + (6 << 32), fabric="shm")
+    try:
+        h = fctx.alloc(nbytes, OcmKind.REMOTE_HOST)
+        data = torch.empty(nbytes, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen)
+        fctx.put(h, data)
+        back = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        if not torch.equal(fctx.get(h, out=back), data):
+            raise AssertionError("shm fabric: get differs from put")
+        addr = tuple(h.owner_addr)
+        fab = fclient._dcn_fabrics.get(addr)
+        counters = fclient.status(h.rank)["fabric"]
+        rec = {
+            "nbytes": nbytes, "reps": reps,
+            "selected": getattr(fab, "name", "tcp"),
+            "served": counters["served"],
+            "daemon_counters": {k: counters["counters"][k] for k in (
+                "selected_shm", "shm_puts", "shm_gets")},
+            "put_from_card_gbps": nbytes / _median_s(
+                lambda: fctx.put(h, data), reps, device) / 1e9,
+            "get_to_card_gbps": nbytes / _median_s(
+                lambda: fctx.get(h, out=back), reps, device) / 1e9,
+        }
+        if not torch.equal(back, data):
+            raise AssertionError("shm fabric: timed get differs")
+        fctx.free(h)
+    finally:
+        fctx.tini()
+        fclient.close()
+    if rec["selected"] != "shm" or rec["daemon_counters"]["selected_shm"] < 1 \
+            or rec["daemon_counters"]["shm_puts"] < 1:
+        raise AssertionError(f"OCM_FABRIC=shm did not select shm: {rec}")
+    owner = (cl.entries[1].connect_host, cl.entries[1].port)
+    caps = blk_client._dcn_caps.get(owner, 0)
+    if not caps & FLAG_CAP_COALESCE:
+        raise AssertionError(f"ACK coalescing not granted on tcp: caps {caps}")
+    chunk, window = blk_client._dcn_tuners[owner].plan()
+    rec["tcp"] = {"caps": caps, "coalesce_granted": True,
+                  "tuner_plan": {"chunk_bytes": chunk, "window": window}}
+    log(f"[client] (b) {json.dumps(rec)}")
+    del data, back
+    return rec
+
+
+def _hedge_and_failover(device, gen, *, handles, hedge_ms: int, deadline_ms: int,
+                        slack_s: float, heartbeat_s: float) -> dict:
+    """Checks (d) and (c) of phase 8c on three Python daemons with phase 8b
+    (d)'s resilient control plane, the app at rank 0 with ``replicas=2`` and
+    ``hedge_ms``. (d): SIGSTOP the primary of a handle (not rank 0): a get
+    returns byte for byte from the replica and leaves the handle as it was;
+    a put with ``deadline_ms`` raises ``OcmDeadlineExceeded`` within its
+    budget and ``slack_s``; SIGCONT. (c): SIGKILL that primary; a put and a
+    get on the handle work and its rank moves to the promoted replica; every
+    handle reads back through ``ctx.get``."""
+    import signal
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+
+    count, nb = handles
+    out = {}
+    cl = _healthy_cluster(3, host_arena_bytes=64 * MiB + 4 * count * nb,
+                          heartbeat_s=heartbeat_s, out=out)
+    with cl:
+        ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=0,
+                                         host_arena_bytes=64 * MiB,
+                                         device_arena_bytes=64 * MiB,
+                                         replicas=2, hedge_ms=hedge_ms),
+                           device=device)
+        hs, datas = [], []
+        for _ in range(count):
+            h = ctx.alloc(nb, OcmKind.REMOTE_HOST)
+            data = torch.empty(nb, dtype=torch.uint8, device=device).random_(
+                0, 256, generator=gen)
+            ctx.put(h, data)
+            hs.append(h)
+            datas.append(data)
+        if not all(h.replica_ranks for h in hs):
+            raise AssertionError("a handle without replica_ranks")
+        out["replica_chains"] = sorted({(h.rank, *h.replica_ranks) for h in hs})
+        hd = next((h for h in hs if h.rank != 0 and 0 in h.replica_ranks),
+                  next(h for h in hs if h.rank != 0))
+        i = hs.index(hd)
+        victim, chain = hd.rank, tuple(hd.replica_ranks)
+        pid = cl.pids()[victim]
+
+        # (d) a stopped primary: the hedge escapes, the budget expires.
+        os.kill(pid, signal.SIGSTOP)
+        try:
+            t0 = time.perf_counter()
+            got = ctx.get(hd)
+            hedge_s = time.perf_counter() - t0
+            if not torch.equal(got.to(device), datas[i]):
+                raise AssertionError("hedged get differs")
+            if (hd.rank, tuple(hd.replica_ranks)) != (victim, chain):
+                raise AssertionError(f"the hedge repointed the handle: "
+                                     f"{hd.rank} {hd.replica_ranks}")
+            t0 = time.perf_counter()
+            try:
+                ctx.put(hd, datas[i], deadline_ms=deadline_ms)
+            except ocm.OcmDeadlineExceeded:
+                put_s = time.perf_counter() - t0
+            else:
+                raise AssertionError("a put to a stopped primary did not expire")
+        finally:
+            os.kill(pid, signal.SIGCONT)
+        if put_s > deadline_ms / 1e3 + slack_s:
+            raise AssertionError(f"the {deadline_ms} ms put expired after "
+                                 f"{put_s:.3f} s")
+        out["hedge"] = {"hedge_ms": hedge_ms, "get_s": hedge_s, "rank": victim,
+                        "replica_ranks": list(chain), "repointed": False}
+        out["deadline"] = {"deadline_ms": deadline_ms, "raised_after_s": put_s,
+                           "slack_s": slack_s,
+                           "error": "OcmDeadlineExceeded"}
+        log(f"[client] (d) primary rank {victim} stopped: hedged get "
+            f"{hedge_s * 1e3:.3f} ms byte-equal, handle unchanged; a "
+            f"{deadline_ms} ms put raised OcmDeadlineExceeded after "
+            f"{put_s:.3f} s; SIGCONT")
+
+        # (c) the primary killed: the client's failover.
+        cl.kill(victim)
+        new = torch.empty(nb, dtype=torch.uint8, device=device).random_(
+            0, 256, generator=gen)
+        t0 = time.perf_counter()
+        ctx.put(hd, new)
+        failover_s = time.perf_counter() - t0
+        if not torch.equal(ctx.get(hd).to(device), new):
+            raise AssertionError("after the kill: get differs from the put")
+        if hd.rank == victim or hd.rank not in chain:
+            raise AssertionError(f"the handle names rank {hd.rank}, not a "
+                                 f"promoted replica of {chain}")
+        datas[i] = new
+        moved = 0
+        for h, data in zip(hs, datas):
+            was = h.rank
+            if not torch.equal(ctx.get(h).to(device), data):
+                raise AssertionError(f"handle {h.alloc_id} (rank {was}) differs")
+            moved += was == victim
+        out["replicas"] = {"handles": count, "nbytes": nb, "killed": victim,
+                           "promoted": hd.rank, "put_after_kill_s": failover_s,
+                           "handles_on_killed_rank": moved + 1}
+        log(f"[client] (c) rank {victim} SIGKILLed: put and get through the "
+            f"client byte-equal, handle now on rank {hd.rank} "
+            f"({failover_s:.3f} s for the first put); {count} handles read back")
+        ctx.tini()
+    return out
+
+
+def phase_client(device, *, engine=None, host_bytes=WIRE_HOST, sizes=PY_SIZES,
+                 timed=(PAGE, GiB), reps: int = 5, alloc_iters: int = 200,
+                 tenants: int = CLIENT_TENANTS, async_gets=CLIENT_ASYNC,
+                 fabric_bytes: int = GiB, handles=PY_HANDLES,
+                 hedge_ms: int = CLIENT_HEDGE_MS,
+                 deadline_ms: int = CLIENT_DEADLINE_MS,
+                 slack_s: float = CLIENT_DEADLINE_SLACK_S,
+                 heartbeat_s: float = PY_HEARTBEAT_S,
+                 check_launches: bool = True) -> dict:
+    """Phase 8c, the client: the client halves of the daemons' features.
+    On two Python daemons sized as phase 8b's pair (``OCM_FABRIC=shm``):
+    (a) an ``OCM_MUX=1`` app's REMOTE_HOST card tensors at ``sizes``, GB/s
+    at ``timed`` and alloc/free p50 beside a blocking client's, ``tenants``
+    tenants on one channel a peer, AsyncOcm's concurrent gets
+    (``async_gets``), and a mux client against two native daemons running
+    lockstep; (b) the shm fabric selected, ``fabric_bytes`` of card tensors
+    byte for byte and timed, ACK coalescing granted on tcp and the tuner's
+    plan; given ``engine`` (``dict(cfg=, params=, page_tokens=, runs=<phase
+    5b's runs, C and E among them>)``), (e) runs H (E's settings) and I
+    (C's) with the COLD tier on rank 1 behind a PRIO_LOW mux client: H's
+    prefetcher async, every COLD page of both legs the bytes put, I's
+    tokens C's bit for bit, H's E's by the margin rule, HOT puts/gets the
+    K1/K2 launches. On three with the resilient control plane: (d) hedges
+    and deadlines, (c) replication through the client
+    (:func:`_hedge_and_failover`). Raises on the first check that fails."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.qos.policy import PRIO_LOW
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+    from oncilla_tpu_torch.runtime.cluster import local_cluster
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(83)
+    report = {"launches": {k: 0 for k in dma.launches()}}
+    t0 = time.perf_counter()
+    with local_cluster(2, daemon="python", host_arena_bytes=list(host_bytes),
+                       device_arena_bytes=64 * MiB,
+                       env={"OCM_FABRIC": "shm"}) as cl:
+        log(f"[client] two Python daemons up in {time.perf_counter() - t0:.3f} s")
+        report["mux"], blk, blk_client = _mux_checks(
+            cl, device, gen, sizes=sizes, timed=timed, reps=reps,
+            alloc_iters=alloc_iters, tenants=tenants, async_gets=async_gets)
+        try:
+            report["fabric"] = _fabric_checks(cl, device, gen, blk_client,
+                                              nbytes=fabric_bytes, reps=reps)
+        finally:
+            blk.tini()
+            blk_client.close()
+        if engine is not None:
+            cold = CheckedCold(ControlPlaneClient(
+                cl.entries, 0, config=dataclasses.replace(
+                    ocm.OcmConfig(), priority=PRIO_LOW, mux=True),
+                app_id=os.getpid() + (1 << 32)))
+            try:
+                ref = engine["runs"]
+                hi = phase_engine(device, engine["cfg"], engine["params"],
+                                  page_tokens=engine["page_tokens"],
+                                  runs=(("H", *ref["E"]["settings"]),
+                                        ("I", *ref["C"]["settings"])),
+                                  cold_backend=cold,
+                                  **{"warm": WIRE_WARM, **engine.get("kw", {})})["runs"]
+                report["serving"] = check_remote_cold(
+                    ref, hi, cold, [cl.status(r)["live_allocs"] for r in range(2)],
+                    check_launches, names=("H", "I"), mode="async")
+            finally:
+                cold.client.close()
+            report["serving"]["mode"] = hi["H"]["prefetch"]["mode"]
+            if "wire" in engine:
+                report["serving"]["tok_s"].update(
+                    {k: engine["wire"]["tok_s"][k] for k in ("F", "G")})
+            report["launches"] = {k: v + hi["H"]["launches"][k] + hi["I"]["launches"][k]
+                                  for k, v in report["launches"].items()}
+            log(f"[client] (e) runs H and I: {json.dumps(report['serving'])}")
+    report["mux"]["native"] = _native_lockstep(device, gen)
+    report.update(_hedge_and_failover(
+        device, gen, handles=handles, hedge_ms=hedge_ms, deadline_ms=deadline_ms,
+        slack_s=slack_s, heartbeat_s=heartbeat_s))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[client] phase {report['seconds']:.3f} s; launches {report['launches']}")
+    return report
 
 
 # -- main -------------------------------------------------------------------
@@ -2882,6 +3326,9 @@ def main(argv=None) -> int:
                                       "runs": engine["runs"]})
     daemons_py = phase_daemons_py(device, wire=wire, engine={
         "cfg": cfg, "params": params, "page_tokens": PAGE_TOKENS})
+    client = phase_client(device, engine={
+        "cfg": cfg, "params": params, "page_tokens": ENGINE_PAGE_TOKENS,
+        "runs": engine["runs"], "wire": wire["engine"]})
     del params
     torch.cuda.empty_cache()
 
@@ -2906,7 +3353,7 @@ def main(argv=None) -> int:
 
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "serving_engine": engine_launches, "wire": wire["launches"],
-                 "daemon_py": daemons_py["launches"],
+                 "daemon_py": daemons_py["launches"], "client": client["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -2958,6 +3405,9 @@ def main(argv=None) -> int:
         "daemons_py": {k: daemons_py[k] for k in (
             "remote_host", "placed", "kv", "resilient", "qos", "no_card",
             "seconds")},
+        "client": {k: client[k] for k in (
+            "mux", "fabric", "serving", "hedge", "deadline", "replicas",
+            "replica_chains", "starts", "seconds")},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",

@@ -50,16 +50,21 @@ from oncilla_tpu_torch.core.context import (
 from oncilla_tpu_torch.core.errors import (
     OcmAdmissionDenied,
     OcmBoundsError,
+    OcmBreakerOpen,
     OcmBusy,
     OcmConnectError,
+    OcmDeadlineExceeded,
     OcmDeviceError,
     OcmError,
     OcmInvalidHandle,
+    OcmMoved,
+    OcmNotPrimary,
     OcmOutOfMemory,
     OcmPlacementError,
     OcmProtocolError,
     OcmQuotaExceeded,
     OcmRemoteError,
+    OcmReplicaUnavailable,
 )
 from oncilla_tpu_torch.core.handle import OcmAlloc
 from oncilla_tpu_torch.core.kinds import Fabric, OcmKind
@@ -75,18 +80,23 @@ __all__ = [
     "OcmAdmissionDenied",
     "OcmAlloc",
     "OcmBoundsError",
+    "OcmBreakerOpen",
     "OcmBusy",
     "OcmConfig",
     "OcmConnectError",
+    "OcmDeadlineExceeded",
     "OcmDeviceError",
     "OcmError",
     "OcmInvalidHandle",
     "OcmKind",
+    "OcmMoved",
+    "OcmNotPrimary",
     "OcmOutOfMemory",
     "OcmPlacementError",
     "OcmProtocolError",
     "OcmQuotaExceeded",
     "OcmRemoteError",
+    "OcmReplicaUnavailable",
     "RemoteBackend",
     "ocm_alloc",
     "ocm_alloc_kind",

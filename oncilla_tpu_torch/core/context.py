@@ -54,6 +54,9 @@ class RemoteBackend(Protocol):
     def get(self, handle: OcmAlloc, nbytes: int, offset: int): ...
     def get_into(self, handle: OcmAlloc, out, offset: int): ...
 
+    # A backend that bounds an op's time also takes ``deadline_ms=`` on
+    # alloc, put, get and get_into; the context passes it only when set.
+
 
 class Ocm:
     """Per-process oncilla context (``ocm_init``/``ocm_tini``,
@@ -131,12 +134,14 @@ class Ocm:
 
     def alloc(self, nbytes: int, kind: OcmKind = OcmKind.LOCAL_HOST,
               device_index: int = 0,
-              local_nbytes: int | None = None) -> OcmAlloc:
+              local_nbytes: int | None = None,
+              deadline_ms: int | None = None) -> OcmAlloc:
         """``ocm_alloc`` (reference src/lib.c:175). ``local_nbytes``
         (remote kinds only) sizes the app-side staging window smaller than
         the remote region, the reference's ``local_alloc_bytes`` idiom
         (reference test/ocm_test.c:35-47): ``push``/``pull`` then move
-        window-sized pieces at explicit remote offsets."""
+        window-sized pieces at explicit remote offsets. ``deadline_ms``
+        bounds a remote alloc's time (see :meth:`put`)."""
         if local_nbytes is not None:
             if kind in _LOCAL_KINDS:
                 raise OcmInvalidHandle(
@@ -155,7 +160,9 @@ class Ocm:
                     device_index=di, extent=ext, origin_rank=0,
                 )
             else:
-                h = self._remote_or_raise(kind).alloc(nbytes, kind)
+                kw = ({} if deadline_ms is None
+                      else {"deadline_ms": deadline_ms})
+                h = self._remote_or_raise(kind).alloc(nbytes, kind, **kw)
                 h.local_nbytes = local_nbytes
             with self._lock:
                 self._allocs[h.alloc_id] = h
@@ -192,20 +199,30 @@ class Ocm:
         an address in the daemon's arena, not in this context's)."""
         return handle.daemon_owned or handle.kind not in _LOCAL_KINDS
 
-    def put(self, handle: OcmAlloc, data, offset: int = 0) -> None:
-        """One-sided write (``ocm_copy_onesided`` op_flag=1, lib.c:670)."""
+    def put(self, handle: OcmAlloc, data, offset: int = 0,
+            deadline_ms: int | None = None) -> None:
+        """One-sided write (``ocm_copy_onesided`` op_flag=1, lib.c:670).
+        ``deadline_ms`` bounds the op's total time: retry and failover
+        ladders clamp to it and an exhausted budget surfaces as typed
+        :class:`OcmDeadlineExceeded`. Local arms are a copy and ignore
+        it."""
         self._check_live(handle)
         raw = as_byte_tensor(data)
+        # Pass the deadline only when set: a minimal RemoteBackend keeps
+        # its plain signature.
+        kw = {} if deadline_ms is None else {"deadline_ms": deadline_ms}
         with self.tracer.span("put", nbytes=raw.numel()):
             if self._on_backend(handle):
-                self._remote_or_raise(handle.kind).put(handle, raw, offset)
+                self._remote_or_raise(handle.kind).put(handle, raw, offset,
+                                                       **kw)
             else:
                 self._local_arena(handle.kind, handle.device_index).write(
                     handle.extent, raw, offset
                 )
 
     def get(self, handle: OcmAlloc, nbytes: int | None = None, offset: int = 0,
-            out: torch.Tensor | None = None) -> torch.Tensor:
+            out: torch.Tensor | None = None,
+            deadline_ms: int | None = None) -> torch.Tensor:
         """One-sided read (``ocm_copy_onesided`` op_flag=0): fresh uint8
         bytes, on the card for device arms, on the CPU for host arms.
 
@@ -214,21 +231,27 @@ class Ocm:
         caller's buffer, which is returned. A pinned ``out`` reused across
         gets saves a fresh destination (and its page faults) per read; on a
         REMOTE_HOST handle ``out`` goes to the backend's ``get_into``, and a
-        host ``out`` is where the wire's stripes land."""
+        host ``out`` is where the wire's stripes land.
+
+        ``deadline_ms`` bounds the op's total time (see :meth:`put`);
+        reads on a replicated handle under an armed ``OCM_HEDGE_MS`` may
+        be hedged against the replica chain."""
         self._check_live(handle)
         if out is not None:
             dst = as_byte_tensor(out)
             nbytes = dst.numel()
         elif nbytes is None:
             nbytes = handle.nbytes - offset
+        kw = {} if deadline_ms is None else {"deadline_ms": deadline_ms}
         with self.tracer.span("get", nbytes=nbytes):
             if self._on_backend(handle):
                 backend = self._remote_or_raise(handle.kind)
                 if out is not None and handle.kind in (OcmKind.REMOTE_HOST,
                                                        OcmKind.LOCAL_HOST):
-                    backend.get_into(handle, dst, offset)
+                    backend.get_into(handle, dst, offset, **kw)
                     return out
-                got = as_byte_tensor(backend.get(handle, nbytes, offset))
+                got = as_byte_tensor(backend.get(handle, nbytes, offset,
+                                                 **kw))
                 if out is None:
                     return got
                 dst.copy_(got)
@@ -367,6 +390,11 @@ class Ocm:
         on remote placement (a still-joining cluster demotes remote
         requests, reference src/alloc.c:82-83)."""
         return self._remote_or_raise("status").status(rank)
+
+    def fetch_prom(self, rank: int | None = None) -> str:
+        """A rank's Prometheus text exposition (STATUS_PROM), fetched
+        over the ordinary in-band control path."""
+        return self._remote_or_raise("fetch_prom").fetch_prom(rank)
 
     @staticmethod
     def is_remote(handle: OcmAlloc) -> bool:

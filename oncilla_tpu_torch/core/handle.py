@@ -24,8 +24,8 @@ class OcmAlloc:
       device_index: owning GPU's index on that node (device arms only).
       extent:       (offset, nbytes) inside the owning arena.
       origin_rank:  rank of the node that requested the allocation.
-      owner_addr, local_nbytes, daemon_owned: as in the JAX package
-                    (``oncilla_tpu/core/handle.py:48-61``).
+      owner_addr, local_nbytes, daemon_owned, replica_ranks: as in the
+                    JAX package (``oncilla_tpu/core/handle.py:48-66``).
     """
 
     alloc_id: int
@@ -48,6 +48,11 @@ class OcmAlloc:
     # bytes, so every data op and the free go through the client, never
     # through the context's own arenas.
     daemon_owned: bool = field(default=False, compare=False)
+    # Replica ranks of a k-way replicated allocation: the client's failover
+    # candidates. A transfer that cannot reach the primary retries these in
+    # order (the first survivor is, by the deterministic promotion rule,
+    # the new primary). () = single copy.
+    replica_ranks: tuple[int, ...] = field(default=(), compare=False)
 
     @property
     def is_remote(self) -> bool:

@@ -1,8 +1,5 @@
 """Pluggable one-sided fabric layer (the reference's swappable L1), the
-port's copy of ``oncilla_tpu/fabric/__init__.py``, its server half: the
-daemon serves the shared-memory fabric (``server_fabrics``). The port's
-client speaks the framed-TCP engine only (:mod:`.tcp`) and does not offer
-FLAG_CAP_FABRIC; its attach (``attach_peer``) waits for ROADMAP A 2.3.
+port's copy of ``oncilla_tpu/fabric/__init__.py``, line for line.
 
 The data plane is selected PER PEER PAIR at CONNECT: a client whose
 config offers fabrics (OCM_FABRIC=shm/auto) sets FLAG_CAP_FABRIC on its
@@ -21,11 +18,27 @@ runtime rewrite.
 
 from __future__ import annotations
 
-from oncilla_tpu_torch.fabric.base import ServerFabric
-from oncilla_tpu_torch.fabric.shm import ShmServerFabric
+import json
+
+from oncilla_tpu_torch.core.errors import OcmError
+from oncilla_tpu_torch.fabric.base import FabricKey, PeerFabric, ServerFabric
+from oncilla_tpu_torch.fabric.shm import ShmPeerFabric, ShmServerFabric
 from oncilla_tpu_torch.utils.debug import printd
 
-__all__ = ["ServerFabric", "ShmServerFabric", "server_fabrics"]
+__all__ = [
+    "FabricKey",
+    "PeerFabric",
+    "ServerFabric",
+    "ShmPeerFabric",
+    "ShmServerFabric",
+    "attach_peer",
+    "server_fabrics",
+]
+
+# Client-side attachers, tried in preference order against a daemon's
+# descriptor tail. (tcp is not listed: it is the fallback, not an
+# attachable region.)
+PEER_BACKENDS: dict[str, type] = {"shm": ShmPeerFabric}
 
 
 def server_fabrics(config) -> dict[str, ServerFabric]:
@@ -39,3 +52,26 @@ def server_fabrics(config) -> dict[str, ServerFabric]:
         except (OSError, ValueError) as e:
             printd("fabric: shm unavailable (%s); serving tcp only", e)
     return out
+
+
+def attach_peer(descriptor_tail: bytes, control) -> PeerFabric | None:
+    """Client side of negotiation: parse a daemon's descriptor tail and
+    return the first backend this process can actually reach, or None
+    (-> tcp). Unattachable descriptors — a cross-host segment name, a
+    daemon that died since advertising, a malformed tail from a future
+    daemon — are a clean decline, never an error: tcp always works."""
+    try:
+        desc = json.loads(bytes(descriptor_tail))
+    except (ValueError, UnicodeDecodeError):
+        return None
+    if not isinstance(desc, dict):
+        return None
+    for name, cls in PEER_BACKENDS.items():
+        entry = desc.get(name)
+        if not isinstance(entry, dict):
+            continue
+        try:
+            return cls(entry, control)
+        except (OSError, OcmError, ValueError) as e:
+            printd("fabric: %s descriptor not attachable (%s)", name, e)
+    return None

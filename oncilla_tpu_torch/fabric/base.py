@@ -1,8 +1,6 @@
-"""The one-sided fabric contract both halves of a data plane implement.
+"""The port's copy of ``oncilla_tpu/fabric/base.py``, line for line.
 
-The port's copy of ``oncilla_tpu/fabric/base.py``, its server half
-(``ServerFabric``); the peer half (``FabricKey``, ``PeerFabric``) waits
-for the port's client fabrics (ROADMAP A 2.3).
+The one-sided fabric contract both halves of a data plane implement.
 
 The reference's L1 is a swappable fabric layer: IB verbs RDMA and EXTOLL
 RMA2 each expose register/put/get behind one allocation protocol
@@ -30,6 +28,29 @@ a rewrite.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+from oncilla_tpu_torch.core.errors import OcmBoundsError
+
+
+@dataclass(frozen=True)
+class FabricKey:
+    """One allocation's window inside a peer's registered region."""
+
+    alloc_id: int
+    offset: int   # extent offset within the registered region
+    nbytes: int   # extent size
+
+    def check(self, off: int, n: int) -> None:
+        """Client-side bounds discipline: a one-sided op must stay inside
+        the mapped extent BEFORE any byte moves (the owner cannot veto a
+        memcpy the way it vetoes a DATA_PUT frame)."""
+        if off < 0 or n < 0 or off + n > self.nbytes:
+            raise OcmBoundsError(
+                f"fabric op [{off}, {off + n}) outside extent of "
+                f"{self.nbytes} B (alloc {self.alloc_id})"
+            )
+
 
 class ServerFabric:
     """Daemon-side half: owns the registered arena backing.
@@ -54,4 +75,33 @@ class ServerFabric:
         raise NotImplementedError
 
     def teardown(self) -> None:
+        raise NotImplementedError
+
+
+class PeerFabric:
+    """Client-side half for one peer pair. Implementations are handed a
+    ``control`` callable (``control(mtype, fields) -> Message``) that
+    speaks the framed-TCP protocol to the owning daemon; every
+    correctness decision — role discipline, epoch fencing, bounds
+    against the live registry, replica fan-out — happens there, so a
+    fabric can never ack bytes the control plane would have refused."""
+
+    name: str = "?"
+
+    def map(self, alloc_id: int) -> FabricKey:
+        """Resolve (and cache) an allocation's region window."""
+        raise NotImplementedError
+
+    def put(self, key: FabricKey, off: int, src) -> None:
+        """One-sided write of ``src`` at handle-relative ``off``."""
+        raise NotImplementedError
+
+    def get(self, key: FabricKey, off: int, dst) -> None:
+        """One-sided read into ``dst`` at handle-relative ``off``."""
+        raise NotImplementedError
+
+    def forget(self, alloc_id: int) -> None:
+        """Drop a cached key (handle freed or failed over)."""
+
+    def close(self) -> None:
         raise NotImplementedError

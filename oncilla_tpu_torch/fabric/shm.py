@@ -1,8 +1,8 @@
 """Same-host shared-memory fabric: put/get is a bounds-checked memcpy.
 
-The port's copy of ``oncilla_tpu/fabric/shm.py``, its server half: the
-daemon's segment (``ShmServerFabric``). The client's attach
-(``ShmPeerFabric``) waits for the port's client fabrics (ROADMAP A 2.3).
+The port's copy of ``oncilla_tpu/fabric/shm.py``, line for line. The
+segment is host memory: a card tensor reaches it through the client's
+pinned staging (``runtime/client.py``), never directly.
 
 The daemon backs its host arena with a named
 ``multiprocessing.shared_memory`` segment and advertises the segment
@@ -35,7 +35,9 @@ import os
 
 import numpy as np
 
-from oncilla_tpu_torch.fabric.base import ServerFabric
+from oncilla_tpu_torch.core.errors import OcmError
+from oncilla_tpu_torch.fabric.base import FabricKey, PeerFabric, ServerFabric
+from oncilla_tpu_torch.runtime.protocol import MsgType
 
 SEG_PREFIX = "ocm-fab-"
 # Creating a segment larger than tmpfs' free space succeeds (ftruncate
@@ -63,6 +65,28 @@ def _release_mapping(shm) -> None:
     except BufferError:
         shm._buf = None
         shm._mmap = None
+
+
+def _attach_untracked(seg: str):
+    """Attach WITHOUT registering with this process's resource tracker:
+    on CPython <= 3.12 attaching registers like creating does, and the
+    tracker unlinks every registered segment at process exit — an
+    attaching client would tear down the daemon's live arena just by
+    exiting (and, in-process, an unregister here would orphan the
+    CREATOR's registration, since the tracker cache is keyed by name).
+    Only the creating daemon's tracker should own the name: that way a
+    SIGKILL'd daemon process still gets its segment reaped. The
+    suppression window is a few microseconds on a rare path (one attach
+    per peer pair); a concurrent register from another thread landing
+    inside it is the accepted trade."""
+    from multiprocessing import resource_tracker
+
+    orig = resource_tracker.register
+    resource_tracker.register = lambda *a, **kw: None
+    try:
+        return _shm_module().SharedMemory(name=seg, create=False)
+    finally:
+        resource_tracker.register = orig
 
 
 class ShmServerFabric(ServerFabric):
@@ -122,3 +146,90 @@ class ShmServerFabric(ServerFabric):
     def exists(self) -> bool:
         """Is the segment name still linked in /dev/shm? (tests)"""
         return os.path.exists(f"/dev/shm/{self._shm.name}")
+
+
+class ShmPeerFabric(PeerFabric):
+    """Client side: the attached mapping of one daemon's arena segment."""
+
+    name = "shm"
+
+    def __init__(self, descriptor: dict, control):
+        seg = str(descriptor.get("seg", ""))
+        size = int(descriptor.get("size", 0))
+        if not seg.startswith(SEG_PREFIX) or size <= 0:
+            raise OcmError(f"malformed shm descriptor {descriptor!r}")
+        # Attachability IS the same-host verification. FileNotFoundError
+        # here means a cross-host pair (or a dead daemon) — the caller
+        # falls back to tcp.
+        self._shm = _attach_untracked(seg)
+        if self._shm.size < size:
+            try:
+                self._shm.close()
+            except (BufferError, OSError):
+                pass
+            raise OcmError(
+                f"segment {seg} is {self._shm.size} B, descriptor "
+                f"advertised {size} B — not the region we negotiated"
+            )
+        self._buf = np.frombuffer(self._shm.buf, dtype=np.uint8)[:size]
+        self._seg = seg
+        self._control = control
+        self._keys: dict[int, FabricKey] = {}
+
+    def map(self, alloc_id: int) -> FabricKey:
+        key = self._keys.get(alloc_id)
+        if key is None:
+            r = self._control(
+                MsgType.SHM_MAP, {"alloc_id": alloc_id, "seg": self._seg}
+            )
+            key = FabricKey(
+                alloc_id, r.fields["ext_offset"], r.fields["ext_nbytes"]
+            )
+            self._keys[alloc_id] = key
+        return key
+
+    def put(self, key: FabricKey, off: int, src) -> None:
+        mv = memoryview(src)
+        n = mv.nbytes
+        key.check(off, n)
+        start = key.offset + off
+        # The one-sided landing: this memcpy IS the transfer.
+        self._buf[start:start + n] = np.frombuffer(mv, dtype=np.uint8)
+        # Validate/ack AFTER the landing (so the owner can fan the bytes
+        # out to its replica chain over TCP before acking). A typed
+        # rejection (stale mapping, fenced owner, wrong role) or a dead
+        # owner surfaces here and the caller re-runs the whole range
+        # through its failover ladder — full-range rewrites are
+        # idempotent, so nothing the memcpy did needs undoing.
+        r = self._control(
+            MsgType.SHM_PUT,
+            {"alloc_id": key.alloc_id, "ext_offset": key.offset,
+             "offset": off, "nbytes": n, "seg": self._seg},
+        )
+        if r.fields.get("nbytes") != n:
+            raise OcmError(
+                f"shm put ack mismatch: {r.fields.get('nbytes')} != {n}"
+            )
+
+    def get(self, key: FabricKey, off: int, dst) -> None:
+        dmv = memoryview(dst)
+        n = dmv.nbytes
+        key.check(off, n)
+        # Validate BEFORE the copy: bytes from a fenced/superseded owner
+        # must never reach the caller as if they were current.
+        self._control(
+            MsgType.SHM_GET,
+            {"alloc_id": key.alloc_id, "ext_offset": key.offset,
+             "offset": off, "nbytes": n, "seg": self._seg},
+        )
+        start = key.offset + off
+        out = np.frombuffer(dmv, dtype=np.uint8)
+        out[:] = self._buf[start:start + n]
+
+    def forget(self, alloc_id: int) -> None:
+        self._keys.pop(alloc_id, None)
+
+    def close(self) -> None:
+        self._keys.clear()
+        self._buf = None
+        _release_mapping(self._shm)

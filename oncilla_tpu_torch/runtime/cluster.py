@@ -265,10 +265,12 @@ class LocalCluster:
         return c
 
     def context(self, rank: int, ici_plane=None, device=None, **kw):
-        """An ``Ocm`` whose remote arms ride this cluster."""
+        """An ``Ocm`` whose remote arms ride this cluster (``config=`` in
+        ``kw`` configures both the client and the context: a mux, fabric
+        or replica app)."""
         from oncilla_tpu_torch.core.context import Ocm
 
-        return Ocm(config=self.config,
+        return Ocm(config=kw.get("config") or self.config,
                    remote=self.client(rank, ici_plane=ici_plane, **kw),
                    device=device)
 
@@ -353,10 +355,12 @@ class InProcessCluster:
         return c
 
     def context(self, rank: int, ici_plane=None, device=None, **kw):
-        """An ``Ocm`` whose remote arms ride this cluster."""
+        """An ``Ocm`` whose remote arms ride this cluster (``config=`` in
+        ``kw`` configures both the client and the context: a mux, fabric
+        or replica app)."""
         from oncilla_tpu_torch.core.context import Ocm
 
-        return Ocm(config=self.config,
+        return Ocm(config=kw.get("config") or self.config,
                    remote=self.client(rank, ici_plane=ici_plane, **kw),
                    device=device)
 

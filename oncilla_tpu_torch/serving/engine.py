@@ -12,8 +12,9 @@ through the :class:`~.prefix.PrefixCache`.
   publishes every completed prompt-only page. A matched partial tail is
   adopted by copy-on-write.
 - **Prefetch on schedule.** Off-card pages of the next session are
-  fetched by worker threads into pinned host buffers; waiting on one is
-  recorded as stall (``prefetch_stall`` journal events, stall counters).
+  fetched by worker threads (or AsyncOcm coroutines) into pinned host
+  buffers; waiting on one is recorded as stall (``prefetch_stall``
+  journal events, stall counters).
 - **Batched decode** (default; ``OCM_SERVING_BATCH=0`` interleaves
   sessions one token step each): every seated session advances one token
   per tick in one :func:`~..models.kv_paging.paged_decode_batch_step` over
@@ -38,9 +39,9 @@ through the :class:`~.prefix.PrefixCache`.
 Knobs, as in the JAX package: ``OCM_SERVE_PREFETCH`` (workers),
 ``OCM_STEP_BUDGET_MS``, ``OCM_SERVING_BATCH``, ``OCM_SERVING_MAX_BATCH``.
 A COLD tier on a remote host is read by the prefetch workers over the
-wire, from their own threads (the daemon client is thread-safe). Not
-ported: the AsyncOcm/mux prefetch leg and the FROZEN tier's warm boot
-(waits for the disk store).
+wire, from their own threads (the daemon client is thread-safe), or, when
+the cold client is a mux client, by AsyncOcm coroutines on its event loop.
+Not ported: the FROZEN tier's warm boot (ROADMAP A 2.5).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ from oncilla_tpu_torch.serving import metrics as serving_metrics
 from oncilla_tpu_torch.serving.metrics import ServingStats
 from oncilla_tpu_torch.serving.prefix import PrefixCache, SharedExtent
 from oncilla_tpu_torch.serving.tiers import Page, Tier, TieredPageStore
-from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
+from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER, printd
 
 
 def _pow2(n: int) -> int:
@@ -98,11 +99,15 @@ class SessionResult:
 
 class Prefetcher:
     """Fetch off-card page bytes ahead of schedule into reusable pinned
-    host buffers, on a pool of worker threads (``workers == 0``: off, every
-    miss is a synchronous fault). Threads only: the JAX package's AsyncOcm
-    leg is not ported; a worker reads a remote COLD page through the
-    daemon client on its own thread. Workers touch host memory only
-    (:meth:`TieredPageStore.fetch_bytes`); a buffer goes
+    host buffers. ``workers == 0`` disables prefetch entirely (every miss
+    is a synchronous fault). With a mux-backed cold client (``OCM_MUX=1``)
+    COLD fetches ride :class:`~oncilla_tpu_torch.runtime.mux.AsyncOcm`
+    coroutines on the shared event loop (zero extra threads, tagged
+    pipelining on the one connection per peer), as in the JAX package;
+    otherwise a pool of worker threads reads through
+    :meth:`TieredPageStore.fetch_bytes`. Either way a fetch touches host
+    memory only: the coroutine lands the page in a numpy view of a pinned
+    buffer, and no kernel launch leaves the engine thread. A buffer goes
     back to the pool with an event recorded after its upload, and is not
     handed out again before that event."""
 
@@ -112,14 +117,37 @@ class Prefetcher:
         self.stats = stats or store.stats
         self.workers = workers
         self._pool = None
+        self._aocm = None
+        self._mux_rt = None
         self._bufs: list[tuple] = []   # (pinned buffer, event or None)
         self._futures: dict[int, cf.Future] = {}
-        if workers > 0:
+        if workers <= 0:
+            return
+        client = store.cold_backend
+        rt = getattr(client, "_mux", None) if client is not None else None
+        if rt is not None:
+            try:
+                self._open_async(client, rt)
+            except Exception as e:  # noqa: BLE001 — degrade to threads
+                printd("serving: AsyncOcm prefetch unavailable (%s); "
+                       "using threads", e)
+        if self._aocm is None:
             self._pool = cf.ThreadPoolExecutor(
                 max_workers=workers, thread_name_prefix="ocm-prefetch")
 
+    def _open_async(self, client, rt) -> None:
+        from oncilla_tpu_torch.runtime.mux import AsyncOcm
+
+        self._aocm = rt.run(AsyncOcm.open(
+            client.entries, client.rank, config=client.config,
+            channels=rt.channels, heartbeat=False,
+        ))
+        self._mux_rt = rt
+
     @property
     def mode(self) -> str:
+        if self._aocm is not None:
+            return "async"
         return "thread" if self._pool is not None else "off"
 
     def take_buf(self) -> torch.Tensor:
@@ -136,14 +164,29 @@ class Prefetcher:
         """Schedule a fetch of ``page`` (idempotent per page)."""
         if self.mode == "off" or page.page_id in self._futures:
             return
+        if self.mode == "async" and page.tier != Tier.COLD:
+            return  # warm reads are local copies; not worth a coroutine
         buf = self.take_buf()
+        version = page.version
         self.stats.note_prefetch()
+        if self._aocm is not None:
+            nbytes = page.nbytes
+            # The loop thread writes host bytes only: a numpy view of the
+            # pinned buffer, taken here on the engine thread.
+            dest = buf.numpy()[:nbytes]
 
-        def fetch():
-            ver, ok = self.store.fetch_bytes(page, buf)
-            return (buf, ver, ok)
+            async def go():
+                await self._aocm.get(page.handle, nbytes, 0, out=dest)
+                self.stats.note_remote(nbytes, inbound=True)
+                return (buf, version, True)
 
-        self._futures[page.page_id] = self._pool.submit(fetch)
+            self._futures[page.page_id] = self._mux_rt.submit(go())
+        else:
+            def fetch():
+                ver, ok = self.store.fetch_bytes(page, buf)
+                return (buf, ver, ok)
+
+            self._futures[page.page_id] = self._pool.submit(fetch)
 
     def take(self, page_id: int):
         """The pending future for ``page_id`` (consumed), or None."""
@@ -168,6 +211,13 @@ class Prefetcher:
         self._futures.clear()
         if self._pool is not None:
             self._pool.shutdown(wait=True)
+        if self._aocm is not None:
+            try:
+                self._mux_rt.run(self._aocm.aclose(detach=True))
+            except Exception as e:  # noqa: BLE001 — the runtime may
+                # already be shut down by the owning client's close
+                printd("serving: AsyncOcm close failed: %s", e)
+            self._aocm = None
 
 
 @dataclass

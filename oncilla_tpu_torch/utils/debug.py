@@ -239,6 +239,17 @@ class Tracer:
             )
         printd("op=%s nbytes=%d dt_us=%.1f", op, nbytes, dt * 1e6)
 
+    def note_span(self, op: str, nbytes: int, dt: float,
+                  ctx=None) -> None:
+        """Record a completed span measured EXTERNALLY — the async
+        client's path. Coroutines must not install the thread-local
+        ambient context across awaits (overlapping spans on one loop
+        thread un-nest non-LIFO and leak the context), so they mint
+        their ctx explicitly, thread it to the wire attach by hand, and
+        feed the same stats/histogram/journal sink here."""
+        self._span_close(op, nbytes, dt, ctx, _journal.enabled(),
+                         time.time() - dt)
+
     def stats(self, op: str) -> OpStats:
         """A consistent SNAPSHOT of the op's stats: copied under the lock,
         so concurrent span() completions can't mutate the samples mid-sort

@@ -13,6 +13,8 @@ types must be equal.
   in-process cluster, with replies equal once ports, pids and times are
   normalised.
 - ``python -m oncilla_tpu_torch.runtime.daemon`` as a process.
+- Phases 8b and 8c of ``chip_smoke.py`` at a tiny size on the CPU (their
+  daemons are processes; here they run one after the other).
 
 :class:`PortDaemon` is the shim the ``test_torch_daemon_ref_*`` files and
 ``test_torch_client.py`` put in place of the JAX ``Daemon``: it converts the
@@ -792,6 +794,48 @@ def test_phase_8b_on_the_cpu():
     assert rep["resilient"]["located"] and 0 not in rep["resilient"]["located"]
     assert rep["placed"]["relayed"]["PLANE_PUT"] >= 1
     assert len(rep["no_card"]["pids"]) == 5
+
+
+def test_phase_8c_on_the_cpu():
+    """``chip_smoke.phase_client`` at a tiny size on the CPU: the Python
+    daemons as processes, the mux app, 8 tenants on one channel a peer,
+    AsyncOcm's concurrent gets, lockstep against the native pair, the shm
+    fabric selected, runs H and I over a mux cold client against runs E
+    and C (H's prefetcher async, every COLD page of both legs checked), a
+    stopped primary hedged around and a budgeted put expired, a killed one
+    failed over through the client. Kernel launches are not counted: on the
+    CPU the wrappers run their plain versions."""
+    import torch
+
+    import chip_smoke
+    from oncilla_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = torch.device("cpu")
+    # A 40-token shared prefix: long enough that pages reach COLD while
+    # their sessions run, so H's AsyncOcm leg has pages to prefetch.
+    kw = dict(shared=40, suffix=4, new_tokens=8, warm=2)
+    ref = chip_smoke.phase_engine(
+        cpu, cfg, params, page_tokens=8,
+        runs=(("C", True, 0, True, 2), ("E", True, 2, None, 2)), **kw)["runs"]
+    rep = chip_smoke.phase_client(
+        cpu, engine={"cfg": cfg, "params": params, "page_tokens": 8,
+                     "runs": ref, "kw": kw},
+        host_bytes=(4 << 20, 16 << 20), sizes=(4096, 64 << 10, 1 << 20),
+        timed=(64 << 10,), reps=2, alloc_iters=10, tenants=8,
+        async_gets=(4, 64 << 10), fabric_bytes=1 << 20, handles=(6, 64 << 10),
+        check_launches=False)
+    assert rep["mux"]["tenants"]["fds"] == 2
+    assert rep["mux"]["native"]["muxed"] is False
+    assert rep["fabric"]["selected"] == "shm"
+    assert rep["fabric"]["tcp"]["coalesce_granted"]
+    s = rep["serving"]
+    assert s["mode"] == "async" and s["i_vs_c_tokens_equal"] == s["tokens"] > 0
+    assert s["cold_pages_checked_async"] > 0 and s["cold_pages_mismatched"] == 0
+    assert rep["hedge"]["repointed"] is False
+    assert rep["deadline"]["raised_after_s"] < 0.4 + 1.6
+    assert rep["replicas"]["promoted"] != rep["replicas"]["killed"]
 
 
 def test_inprocess_cluster_restart_keeps_the_address():

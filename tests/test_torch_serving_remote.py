@@ -9,7 +9,10 @@ tiers small enough that pages demote to COLD and come back: the emitted
 tokens must be equal (tolerance 0), ``cold_sim`` False, COLD puts and gets
 above zero and equal to the client's wire transfers, and every daemon
 drained after the store closes. The port runs with two prefetch workers,
-which read COLD pages over the wire from their own threads.
+which read COLD pages over the wire from their own threads; with a mux cold
+client (``OCM_MUX=1``, the port's daemons in this process) the prefetcher
+runs its AsyncOcm leg instead, coroutines on the client's event loop, and
+the tokens are the JAX engine's all the same.
 """
 
 import dataclasses
@@ -31,7 +34,7 @@ from oncilla_tpu.serving.prefix import PrefixCache as JPrefix
 from oncilla_tpu.serving.tiers import TieredPageStore as JStore
 from oncilla_tpu_torch.models import llama as tllama
 from oncilla_tpu_torch.qos.policy import PRIO_LOW
-from oncilla_tpu_torch.runtime.cluster import local_cluster
+from oncilla_tpu_torch.runtime.cluster import inprocess_cluster, local_cluster
 from oncilla_tpu_torch.serving.engine import Request, ServingEngine
 from oncilla_tpu_torch.serving.metrics import ServingStats
 from oncilla_tpu_torch.serving.prefix import PrefixCache
@@ -122,6 +125,54 @@ def test_engine_over_a_remote_cold_tier_matches_jax(tiny_model, prompts, batched
     assert cold_io["put"] > 0 and cold_io["get"] > 0
     assert (cold_io["put"], cold_io["get"]) == (transfers["put"], transfers["get"])
     assert drained == [0, 0]
+
+
+def run_port_mux(tiny_model, prompts, batched):
+    """The port's engine with its COLD tier behind a PRIO_LOW mux client of
+    the port's in-process daemons: (tokens, meta, COLD reads on the async
+    leg, live allocations after close)."""
+    _, _, cfg, params = tiny_model
+    ccfg = tocm.OcmConfig(host_arena_bytes=8 << 20, device_arena_bytes=1 << 20,
+                          chunk_bytes=64 << 10, heartbeat_s=0.2)
+    with inprocess_cluster(2, config=ccfg) as cl:
+        cold = cl.client(0, config=dataclasses.replace(
+            ccfg, priority=PRIO_LOW, mux=True))
+        ctx = tocm.Ocm(config=dataclasses.replace(ccfg, host_arena_bytes=1 << 20),
+                       device="cpu")
+        store = TieredPageStore(ctx, ServingEngine.page_nbytes(cfg, PAGE_TOKENS),
+                                hot_capacity=HOT, warm_capacity=WARM,
+                                cold_backend=cold, stats=ServingStats("m"))
+        eng = ServingEngine(params, cfg, store, PrefixCache(store, PAGE_TOKENS),
+                            page_tokens=PAGE_TOKENS, max_active=4,
+                            prefetch_workers=2, name="m", batched=batched)
+        try:
+            assert eng.prefetcher.mode == "async"
+            for i, p in enumerate(prompts):
+                eng.submit(Request(tenant=f"t{i}", tokens=p, max_new_tokens=NEW))
+            out = {r.tenant: list(r.out_tokens) for r in eng.run()}
+            meta = eng.metrics_meta()
+            async_gets = eng.prefetcher._aocm.tracer.transfers()
+        finally:
+            eng.close()
+            store.close()
+            ctx.tini()
+        drained = sum(d.registry.live_count() for d in cl.daemons)
+        return out, meta, [t for t in async_gets if t["fabric"] == "mux"], drained
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_engine_over_a_mux_cold_tier_runs_async_and_matches_jax(
+        tiny_model, prompts, batched):
+    want = run_jax(tiny_model, prompts, batched)
+    got, meta, mux_transfers, drained = run_port_mux(tiny_model, prompts,
+                                                     batched)
+    assert got == want
+    assert meta["prefetch"]["mode"] == "async"
+    assert meta["cold_sim"] is False
+    assert meta["prefetch"]["issued"] > 0, "no COLD page was prefetched"
+    assert any(t["op"] == "get" for t in mux_transfers), \
+        "no COLD read rode the mux channel"
+    assert drained == 0
 
 
 def test_chip_smoke_wire_phase_rehearsal_on_the_cpu(tiny_model):
