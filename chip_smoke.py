@@ -154,6 +154,26 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    within its budget and 1.6 s, SIGCONT; (c) that primary SIGKILLed, a put
    and a get on the handle work and its rank moves to the promoted replica,
    all 16 handles read back through ``ctx.get``.
+8d. warmboot — the FROZEN tier and the engine's warm boot, right after 8c
+   while the weights are on the card: six requests sharing a 256-token
+   prefix (12-token suffixes, t0 and t1 identical, 32 new tokens) over
+   16-token pages with run C's settings (batched, graphed, no prefetch
+   workers), 8 HOT and 4 WARM pages, COLD the host stand-in, bounded at 8
+   pages once a ``FrozenStore`` (in a temporary directory) is attached.
+   Arms: ref (no frozen backend), seeded (its close persists the prefix
+   trie), cold (a fresh context, no backend), warm0 and warm (fresh
+   contexts over the seeded dir, whose ``__init__`` restores the trie;
+   warm0 is the discarded warm-up pass that captures warm's graphs, as the
+   JAX package's run_warmboot discards a jit-warm pass). Checks: seeded's
+   and cold's tokens ref's bit for bit, warm's by the margin rule; the
+   extents restored equal the ``prefix-`` keys persisted, each read back
+   equal to its file; pages reached FROZEN in the seeded arm and every disk
+   read is the bytes written; K1/K2 launches equal the HOT puts/gets in
+   every arm; warm's prefix hit ratio above cold's and its mean TTFT below
+   cold's; the seeded and warm arms audited clean by the port's flight
+   recorder and auditor; then ``python -m oncilla_tpu_torch.persist
+   --smoke`` exits 0. It prints TTFT, tokens/s, pages per tier and the
+   disk bytes each way per arm.
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -188,8 +208,10 @@ once, 1 MiB .. 256 MiB) beside every card's ``nvidia-smi`` line.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import hashlib
 import json
 import multiprocessing
 import os
@@ -748,7 +770,7 @@ def _recording_engine():
     ``profile_steps`` batched steps whose bucket ran before. ``graphs``
     runs the steps through a graph cache (on the CPU: its bookkeeping
     without a capture) or eagerly, whatever the device; ``"engine"`` keeps
-    the engine's own choice. ``timed`` synchronises each batched step to
+    the engine's own choice; a ``StepGraphs`` is a cache to use. ``timed`` synchronises each batched step to
     time it; the engine as shipped runs untimed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -759,7 +781,9 @@ def _recording_engine():
     class RecordingEngine(ServingEngine):
         def __init__(self, *args, graphs, profile_steps=0, timed=True, **kw):
             super().__init__(*args, **kw)
-            if graphs != "engine":
+            if isinstance(graphs, StepGraphs):
+                self.graphs = graphs  # a cache shared with other engines
+            elif graphs != "engine":
                 self.graphs = StepGraphs(self.params, self.cfg) if graphs else None
             self.profile_steps = profile_steps
             self.timed = timed
@@ -2879,6 +2903,288 @@ def phase_client(device, *, engine=None, host_bytes=WIRE_HOST, sizes=PY_SIZES,
     return report
 
 
+# -- phase 8d ---------------------------------------------------------------
+
+# The FROZEN tier and the engine's warm boot, at the width of phase 5b:
+# six requests sharing a 256-token prefix (16 pages of 16 tokens), run C's
+# engine settings (batched, graphed, no prefetch workers, so the seating is
+# the scheduler's alone) over a store of 8 HOT and 4 WARM pages. With a
+# frozen backend attached, COLD (the host stand-in) is bounded at 8 pages
+# and the overflow reaches the disk.
+WARMBOOT_PROMPTS = {"n": 6, "shared": 256, "suffix": 12}
+WARMBOOT_NEW = 32
+WARMBOOT_TIERS = (8, 4)  # HOT, WARM pages
+# The arms, as the JAX package's run_warmboot (serving/__main__.py:496):
+# (name, frozen dir, held to ref by). ref has no frozen backend; seeded's
+# close persists the trie; cold is a fresh context without a backend; warm
+# a fresh context over the seeded dir, whose __init__ restores the trie.
+# warm0 is the reference's discarded warm-up pass: the arms share one graph
+# cache (the counterpart of XLA's process-wide compile cache), ref and
+# seeded capture cold's shapes and warm0 warm's, so that TTFT measures the
+# skipped prefill, not a graph capture.
+WARMBOOT_ARMS = (("ref", False, "bits"), ("seeded", True, "bits"),
+                 ("cold", False, "bits"), ("warm0", True, "margin"),
+                 ("warm", True, "margin"))
+
+
+class CheckedFrozen:
+    """A ``FrozenStore`` whose every read is held to the bytes last written
+    under its key in this phase (a digest a key, shared by the arms), with
+    the bytes and files moved each way."""
+
+    def __init__(self, inner, digests: dict):
+        self.inner = inner
+        self.digests = digests
+        self.io = {"writes": 0, "written": 0, "reads": 0, "read": 0,
+                   "write_s": 0.0, "read_s": 0.0}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def write(self, key: str, data: bytes, meta=None) -> None:
+        t0 = time.perf_counter()
+        self.inner.write(key, data, meta=meta)
+        self.io["write_s"] += time.perf_counter() - t0
+        self.digests[key] = hashlib.sha1(data).hexdigest()
+        self.io["writes"] += 1
+        self.io["written"] += len(data)
+
+    def read_bytes(self, key: str) -> bytes:
+        t0 = time.perf_counter()
+        got = self.inner.read_bytes(key)
+        self.io["read_s"] += time.perf_counter() - t0
+        if hashlib.sha1(got).hexdigest() != self.digests.get(key):
+            raise AssertionError(f"frozen {key}: read back other bytes than "
+                                 f"this phase wrote")
+        self.io["reads"] += 1
+        self.io["read"] += len(got)
+        return got
+
+    def delete(self, key: str) -> None:
+        self.inner.delete(key)
+        self.digests.pop(key, None)
+
+
+def phase_warmboot(device, cfg, params, *, page_tokens: int,
+                   prompts=WARMBOOT_PROMPTS, new_tokens: int = WARMBOOT_NEW,
+                   tiers=WARMBOOT_TIERS, max_active: int = 4,
+                   max_batch: int = 8, hold_ttft: bool = True,
+                   check_launches: bool = True) -> dict:
+    """Phase 8d, the warm boot: :data:`WARMBOOT_ARMS` over ``seeded_prompts``
+    on fresh contexts, the seeded and warm arms under the port's flight
+    recorder and auditor (``obs/audit.recorded``). Checks, each raising:
+    (a) seeded's and cold's tokens ref's bit for bit, warm's (and warm0's)
+    by the margin rule; (b) the extents restored equal the ``prefix-`` keys
+    persisted, both > 0, each restored page read back (K2 where HOT) equal
+    to its file's bytes; (c) pages reached FROZEN in the seeded arm and every
+    disk read is the bytes written (:class:`CheckedFrozen`); (d) in every
+    arm the K1/K2 launches equal its HOT puts/gets; (e) warm's prefix hit
+    ratio above cold's and, with ``hold_ttft``, its mean TTFT below cold's;
+    (f) both audits find nothing. Then ``python -m oncilla_tpu_torch.persist
+    --smoke`` in a subprocess must exit 0."""
+    import shutil
+    import tempfile
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch.models.graphs import StepGraphs
+    from oncilla_tpu_torch.obs import audit
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.persist import FrozenStore
+    from oncilla_tpu_torch.serving.engine import Request, ServingEngine
+    from oncilla_tpu_torch.serving.metrics import ServingStats
+    from oncilla_tpu_torch.serving.prefix import PrefixCache
+    from oncilla_tpu_torch.serving.tiers import TieredPageStore
+
+    t_phase = time.perf_counter()
+    Engine = _recording_engine()
+    page = ServingEngine.page_nbytes(cfg, page_tokens, cfg.dtype)
+    reqs = seeded_prompts(cfg.vocab, 11, **prompts)
+    prompt_tokens = sum(len(p) for p in reqs)
+    hot, warm = tiers
+    on_card = device.type == "cuda"
+    graphs = StepGraphs(params, cfg) if on_card else None
+    digests: dict = {}
+    report = {"arms": {}, "page_bytes": page, "prompt_tokens": prompt_tokens}
+    log(f"[warmboot] {len(reqs)} requests of {len(reqs[0])} prompt tokens + "
+        f"{new_tokens}, pages of {page_tokens} tokens ({page} B), HOT {hot}, "
+        f"WARM {warm}, max_active {max_active}, max_batch {max_batch}")
+
+    def arm(name: str, frozen_dir) -> dict:
+        ctx = ocm.ocm_init(ocm.OcmConfig(
+            device_arena_bytes=max(64 * MiB, hot * page),
+            host_arena_bytes=256 * MiB), device=device)
+        frozen = (CheckedFrozen(FrozenStore(frozen_dir), digests)
+                  if frozen_dir else None)
+        persisted = (sum(k.startswith("prefix-") for k in frozen.keys())
+                     if frozen else 0)
+        store = TieredPageStore(ctx, page, hot_capacity=hot,
+                                warm_capacity=warm, frozen_backend=frozen,
+                                stats=ServingStats(f"warmboot {name}"))
+        if on_card:
+            torch.cuda.synchronize(device)
+        # The main path: counts from 0 just before the arm, read after it.
+        dma.reset_launches()
+        t_boot = time.perf_counter()
+        eng = Engine(params, cfg, store, PrefixCache(store, page_tokens),
+                     graphs=graphs, timed=False, page_tokens=page_tokens,
+                     max_active=max_active, prefetch_workers=0,
+                     store_dtype=cfg.dtype, name=f"warmboot {name}",
+                     batched=True, max_batch=max_batch)
+        boot_s = time.perf_counter() - t_boot
+        # (b): read each restored page back in its LRU order (which the
+        # reads' touches keep), HOT ones through K2, against its file.
+        restored = sorted(eng.prefix.extents(), key=lambda e: e.page.last_use)
+        restored_tiers = dict(collections.Counter(
+            e.page.tier.value for e in restored))
+        for ext in restored:
+            got = store.read_host(ext.page).numpy().tobytes()
+            if got != frozen.read_bytes(f"prefix-{ext.key}"):
+                raise AssertionError(f"warmboot {name}: restored extent "
+                                     f"{ext.key[:12]} is not its file's bytes")
+        captured = graphs.captured if graphs is not None else 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(reqs):
+            eng.submit(Request(tenant=f"t{i}", tokens=p,
+                               max_new_tokens=new_tokens))
+        results = eng.run()
+        if on_card:
+            torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+        meta = eng.metrics_meta()
+        occupancy = {k: v["pages"] for k, v in store.occupancy().items()}
+        eng.graphs = None  # the shared cache outlives this engine
+        t_close = time.perf_counter()
+        eng.close()
+        close_s = time.perf_counter() - t_close
+        launches = dma.launches()
+        out = {r.tenant: list(r.out_tokens) for r in results}
+        emitted = sum(len(v) for v in out.values())
+        ttft = meta["ttft"]
+        rec = {
+            "seconds": secs, "boot_s": boot_s, "close_s": close_s,
+            "tok_s": emitted / secs, "emitted": emitted,
+            "ttft_mean_s": ttft["sum_s"] / ttft["count"],
+            "prefix_tokens_reused": sum(r.prefix_tokens_reused for r in results),
+            "prefill_tokens": meta["tokens"]["prefill"],
+            "prefill_chunks": meta["batch"]["prefill_chunks"],
+            "steps": meta["batch"]["steps"], "moves": meta["moves"],
+            "prefix": meta["prefix"], "occupancy_end": occupancy,
+            "persisted_before": persisted, "restored": len(restored),
+            "restored_tiers": restored_tiers,
+            "graphs_captured": (graphs.captured - captured
+                                if graphs is not None else 0),
+            "io": {t: dict(v) for t, v in store.io.items()},
+            "disk": dict(frozen.io) if frozen else None,
+            "launches": launches, "out": out, "rows": eng.rows,
+        }
+        rec["prefix_hit_ratio"] = rec["prefix_tokens_reused"] / prompt_tokens
+        store.close()
+        ctx.tini()
+        log(f"[warmboot] arm {name}: {emitted} tokens in {secs:.3f} s, "
+            f"{rec['tok_s']:.3f} tokens/s, mean TTFT {rec['ttft_mean_s']:.6f} s, "
+            f"prefix hit ratio {rec['prefix_hit_ratio']:.4f} "
+            f"({rec['prefix_tokens_reused']} of {prompt_tokens} prompt tokens), "
+            f"{rec['prefill_chunks']} prefill chunks, boot {boot_s:.3f} s "
+            f"(restored {len(restored)} of {persisted} persisted extents, "
+            f"tiers {restored_tiers}), close {close_s:.3f} s, graphs "
+            f"captured {rec['graphs_captured']}, pages at end {occupancy}, "
+            f"moves {rec['moves']}, io {json.dumps(rec['io'])}, disk "
+            f"{json.dumps(rec['disk'])}, launches "
+            f"write_rows={launches['write_rows']} "
+            f"read_rows={launches['read_rows']}")
+        return rec
+
+    tmp = tempfile.mkdtemp(prefix="ocm-warmboot-")
+    recordings = []
+    try:
+        seed_dir = os.path.join(tmp, "seeded")
+        for name, frozen, _held in WARMBOOT_ARMS:
+            if name in ("seeded", "warm"):
+                with audit.recorded(f"warmboot-{name}") as rec:
+                    report["arms"][name] = arm(name, seed_dir)
+                recordings.append(rec.path)
+                report["arms"][name]["audit"] = rec.summary()
+                log(f"[warmboot] arm {name} (f): {rec.summary()}")
+            else:
+                report["arms"][name] = arm(name, seed_dir if frozen else None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for path in recordings:
+            shutil.rmtree(path, ignore_errors=True)
+        if graphs is not None:
+            graphs.close()
+    arms = report["arms"]
+    ref = arms["ref"]
+    # (a) tokens.
+    for name, _frozen, held in WARMBOOT_ARMS[1:]:
+        if held == "bits":
+            if arms[name]["out"] != ref["out"]:
+                raise AssertionError(f"warmboot {name}: tokens differ from ref: "
+                                     f"{arms[name]['out']} vs {ref['out']}")
+        else:
+            d = _margin_check(ref["rows"], arms[name]["rows"])
+            arms[name]["vs_ref"] = d
+            _hold_margin(f"warmboot {name} against ref", d)
+    # (b) the trie round trip.
+    for name in ("warm0", "warm"):
+        a = arms[name]
+        if not 0 < a["restored"] == a["persisted_before"]:
+            raise AssertionError(f"warmboot {name}: restored {a['restored']} "
+                                 f"of {a['persisted_before']} persisted extents")
+    # (c) the disk tier engaged and read back what it was given.
+    s = arms["seeded"]
+    if not (s["io"]["frozen"]["put"] > 0 and s["io"]["frozen"]["get"] > 0
+            and s["disk"]["reads"] >= s["io"]["frozen"]["get"]):
+        raise AssertionError(f"warmboot seeded: no page went to FROZEN and "
+                             f"came back: io {s['io']['frozen']}, disk {s['disk']}")
+    # (d) every HOT put is one K1 launch, every HOT get one K2.
+    if check_launches:
+        for name, a in arms.items():
+            got = (a["launches"]["write_rows"], a["launches"]["read_rows"])
+            want = (a["io"]["hbm"]["put"], a["io"]["hbm"]["get"])
+            if got != want or a["launches"]["local_copy"] or not all(got):
+                raise AssertionError(f"warmboot {name}: K1/K2 launches {got} != "
+                                     f"HOT puts/gets {want}: {a['launches']}")
+    # (e) the warm boot pays: more prefix reused, a shorter TTFT.
+    w, c = arms["warm"], arms["cold"]
+    report["warm_vs_cold"] = {
+        "prefix_hit_ratio": [w["prefix_hit_ratio"], c["prefix_hit_ratio"]],
+        "ttft_mean_s": [w["ttft_mean_s"], c["ttft_mean_s"]],
+        "tok_s": [w["tok_s"], c["tok_s"]]}
+    log(f"[warmboot] warm vs cold (e): {json.dumps(report['warm_vs_cold'])}")
+    if not w["prefix_hit_ratio"] > c["prefix_hit_ratio"]:
+        raise AssertionError(f"warmboot: warm prefix hit ratio "
+                             f"{w['prefix_hit_ratio']} not above cold's "
+                             f"{c['prefix_hit_ratio']}")
+    if hold_ttft and not w["ttft_mean_s"] < c["ttft_mean_s"]:
+        raise AssertionError(f"warmboot: warm boot did not cut mean TTFT "
+                             f"({w['ttft_mean_s']} s vs cold {c['ttft_mean_s']} s)")
+    # The JAX package's FROZEN-tier smoke, on the port, as its users run it.
+    t0 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "oncilla_tpu_torch.persist", "--smoke"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    report["persist_smoke"] = {"rc": smoke.returncode,
+                               "seconds": time.perf_counter() - t0,
+                               "tail": smoke.stdout.strip().splitlines()[-1:]}
+    log(f"[warmboot] persist --smoke: {json.dumps(report['persist_smoke'])}")
+    if smoke.returncode != 0:
+        raise AssertionError(f"python -m oncilla_tpu_torch.persist --smoke "
+                             f"exited {smoke.returncode}: {smoke.stdout[-2000:]}"
+                             f"{smoke.stderr[-2000:]}")
+    report["launches"] = {k: sum(a["launches"][k] for a in arms.values())
+                          for k in ref["launches"]}
+    for a in arms.values():
+        del a["rows"]
+    if on_card:
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[warmboot] checks a-f passed; launches {report['launches']}; phase "
+        f"{report['seconds']:.3f} s")
+    return report
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -3329,6 +3635,7 @@ def main(argv=None) -> int:
     client = phase_client(device, engine={
         "cfg": cfg, "params": params, "page_tokens": ENGINE_PAGE_TOKENS,
         "runs": engine["runs"], "wire": wire["engine"]})
+    warmboot = phase_warmboot(device, cfg, params, page_tokens=ENGINE_PAGE_TOKENS)
     del params
     torch.cuda.empty_cache()
 
@@ -3354,6 +3661,7 @@ def main(argv=None) -> int:
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "serving_engine": engine_launches, "wire": wire["launches"],
                  "daemon_py": daemons_py["launches"], "client": client["launches"],
+                 "warmboot": warmboot["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -3408,6 +3716,14 @@ def main(argv=None) -> int:
         "client": {k: client[k] for k in (
             "mux", "fabric", "serving", "hedge", "deadline", "replicas",
             "replica_chains", "starts", "seconds")},
+        "warmboot": {"arms": {name: {k: a[k] for k in (
+            "seconds", "boot_s", "close_s", "tok_s", "ttft_mean_s",
+            "prefix_hit_ratio", "prefill_chunks", "restored", "restored_tiers",
+            "occupancy_end", "graphs_captured", "io", "disk")}
+            for name, a in warmboot["arms"].items()},
+            "warm_vs_cold": warmboot["warm_vs_cold"],
+            "persist_smoke": warmboot["persist_smoke"],
+            "seconds": warmboot["seconds"]},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",

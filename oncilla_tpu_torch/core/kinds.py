@@ -8,8 +8,8 @@ reference inc/oncillamem.h:26-35), on a GPU host:
 - ``REMOTE_DEVICE`` — HBM of another GPU (an NVLink peer, or another row of
   the device fabric), served through a ``RemoteBackend`` and its
   ``ici_plane`` (``ops/ici.py``).
-- ``REMOTE_HOST``   — DRAM of another host; needs the daemon's wire client,
-  which the port does not have yet.
+- ``REMOTE_HOST``   — DRAM of another host, served by the daemons through
+  the port's wire client (``runtime/client.py``).
 """
 
 from __future__ import annotations

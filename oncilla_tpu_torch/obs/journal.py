@@ -8,8 +8,15 @@ the recording thread. The ring is capped (``OCM_EVENTS_CAP``, default 8192
 events): old events fall off. The ring is this package's own, so events of
 the port never land in the JAX package's journal, nor the reverse.
 
-Not ported: the flight recorder (``OCM_FLIGHTREC`` is not read, so
-:func:`spill_ring` has nowhere to spill and returns None).
+With the flight recorder armed (``OCM_FLIGHTREC=dir`` or
+``flightrec.set_dir``), every recorded event is ALSO streamed into
+crash-safe CRC-framed segment files on disk, so the bounded ring stays
+the hot in-memory view while the disk keeps the full stream for the
+post-mortem auditor (``obs/audit.py``). ``OCM_FLIGHTREC`` alone turns the
+journal on. The segments carry this journal's ``jid``, which differs from
+the JAX package's in the same process.
+
+Stdlib-only on purpose: ``utils.debug`` imports this at module level.
 """
 
 from __future__ import annotations
@@ -21,7 +28,14 @@ import threading
 import time
 from collections import deque
 
-_ENABLED = os.environ.get("OCM_EVENTS", "") not in ("", "0")
+from oncilla_tpu_torch.obs import flightrec as _flightrec
+
+# OCM_FLIGHTREC alone is a complete opt-in: a flight recorder that also
+# required OCM_EVENTS=1 would silently record nothing.
+_ENABLED = (
+    os.environ.get("OCM_EVENTS", "") not in ("", "0")
+    or bool(os.environ.get(_flightrec.ENV_DIR))
+)
 # Tolerant parse (same stance as watchdog.reload_threshold): a typo'd
 # knob must degrade to the default, not crash every importer of obs.
 try:
@@ -72,6 +86,9 @@ def record(ev: str, *, force: bool = False, **fields) -> None:
         rec["jid"] = _JID
         rec["seq"] = _seq
         _ring.append(rec)
+    # Spill OUTSIDE the ring lock: the recorder has its own lock, and a
+    # slow disk must never serialize hot-path record() callers.
+    _flightrec.append(rec)
 
 
 def phase(name: str, dur_s: float, *, ctx=None, **fields) -> None:
@@ -102,6 +119,11 @@ def set_cap(n: int) -> None:
         _ring = deque(_ring, maxlen=_CAP)
 
 
+def jid() -> str:
+    """This process's journal identity (segment naming, dedup)."""
+    return _JID
+
+
 def events() -> list[dict]:
     """Snapshot copy of the ring (oldest first)."""
     with _lock:
@@ -109,10 +131,13 @@ def events() -> list[dict]:
 
 
 def spill_ring(label: str = "ringdump") -> str | None:
-    """Flush the ring to the flight recorder: a no-op returning None, as
-    the JAX package's is when its recorder is off (the recorder is not
-    ported)."""
-    return None
+    """Flush the CURRENT in-memory ring to the flight-recorder dir as a
+    labelled segment (no-op when the recorder is off). The kill path's
+    black-box flush: events the stream already spilled dedup away on
+    merge, so calling this is always safe and never loses evidence."""
+    if not _flightrec.configured():
+        return None
+    return _flightrec.dump_events(events(), label=label)
 
 
 def clear() -> None:
@@ -126,3 +151,23 @@ def dump_jsonl(evts: list[dict] | None = None) -> str:
     return "".join(
         json.dumps(e, separators=(",", ":"), default=str) + "\n" for e in evts
     )
+
+
+def dump(path: str) -> int:
+    """Write the ring to ``path`` as JSONL; returns the event count."""
+    evts = events()
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(dump_jsonl(evts))
+    return len(evts)
+
+
+def load_jsonl(path: str) -> list[dict]:
+    """Read one journal file back (blank lines tolerated; a malformed
+    line raises — a corrupt journal must not silently drop evidence)."""
+    out: list[dict] = []
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out

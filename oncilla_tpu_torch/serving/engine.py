@@ -41,7 +41,11 @@ Knobs, as in the JAX package: ``OCM_SERVE_PREFETCH`` (workers),
 A COLD tier on a remote host is read by the prefetch workers over the
 wire, from their own threads (the daemon client is thread-safe), or, when
 the cold client is a mux client, by AsyncOcm coroutines on its event loop.
-Not ported: the FROZEN tier's warm boot (ROADMAP A 2.5).
+Warm boot: over a store with a ``frozen_backend``, :meth:`ServingEngine.close`
+persists the prefix trie to disk and the next engine's ``__init__``
+restores it before its first step, each page placed by the store's policy
+(HOT first, older pages demoted down the tiers), so its prefill rides pages
+the previous engine computed.
 """
 
 from __future__ import annotations
@@ -344,6 +348,13 @@ class ServingEngine:
                 f"store page_bytes {store.page_bytes} != model page "
                 f"{expect} (cfg/page_tokens/store_dtype mismatch)")
         serving_metrics.publish(self.stats)
+        # Warm boot: a store built over a FrozenStore re-publishes the
+        # prefix extents a previous engine persisted at close —
+        # cross-restart prefix hits without recomputing a prompt page. No
+        # backend (the default) → the cold engine, unchanged.
+        if (self.prefix is not None
+                and getattr(store, "frozen_backend", None) is not None):
+            self.prefix.restore(store.frozen_backend)
 
     @staticmethod
     def page_nbytes(cfg, page_tokens: int, store_dtype: str = "float32") -> int:
@@ -395,6 +406,15 @@ class ServingEngine:
         for sess in self.active:
             self._finish(sess, abandon=True)
         self.active = []
+        # Persist the prefix trie into the frozen tier (if one backs
+        # the store) BEFORE the prefetcher drains: the pages are still
+        # readable, and the next engine's __init__ restores them.
+        if (self.prefix is not None
+                and getattr(self.store, "frozen_backend", None) is not None):
+            try:
+                self.prefix.persist(self.store.frozen_backend)
+            except OSError:
+                pass  # a full/broken disk must never wedge shutdown
         self.prefetcher.close()
         if self.graphs is not None:
             self.graphs.close()

@@ -3,9 +3,9 @@ the port's copy of ``oncilla_tpu/serving/metrics.py``.
 
 Stdlib only. Every live :class:`ServingStats` can be published in this
 package's own registry (:func:`publish`); :func:`colocated` snapshots every
-published engine. The JAX package's daemons fold their registry into their
-STATUS tails; the port's registry waits for the port's wire client to be
-read that way.
+published engine. The port's daemon folds the registry of its process
+into its STATUS and STATUS_PROM replies (``runtime/daemon.py``,
+``obs/prom.py``), as the JAX package's daemons fold theirs.
 """
 
 from __future__ import annotations

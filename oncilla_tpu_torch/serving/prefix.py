@@ -14,8 +14,13 @@ Sharing rules: an extent's page is ``shared``; while ``refs > 0`` it is
 immutable (``TieredPageStore.write_page`` refuses) and unevictable; a
 tenant that appends into a partial shared extent copies it first
 (``TieredPageStore.cow``); ``refs == 0`` extents stay cached until
-:meth:`PrefixCache.sweep` reclaims unreferenced leaves. Persisting the
-trie into the FROZEN tier waits for the disk store's slice.
+:meth:`PrefixCache.sweep` reclaims unreferenced leaves.
+
+Warm boot: :meth:`PrefixCache.persist` writes every extent's page bytes and
+trie position into a FROZEN store under ``prefix-<chainhash>`` keys (the
+JAX package's chain hashes and meta, so a trie persisted by one package is
+restored by the other), and :meth:`PrefixCache.restore` re-publishes them
+parents first, each page uploaded to the card as one ``alloc_page``.
 """
 
 from __future__ import annotations
@@ -23,9 +28,13 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass, field
 
+import torch
+
+from oncilla_tpu_torch.core.errors import OcmError
 from oncilla_tpu_torch.obs import journal as obs_journal
 from oncilla_tpu_torch.serving.metrics import ServingStats
 from oncilla_tpu_torch.serving.tiers import Page, TieredPageStore
+from oncilla_tpu_torch.utils.debug import printd
 
 
 def _chain_hash(parent_key: str, tokens: tuple[int, ...]) -> str:
@@ -167,6 +176,98 @@ class PrefixCache:
         a page some tenant did NOT have to store privately."""
         return sum(max(e.page.refs - 1, 0) * e.page.nbytes
                    for e in self.extents())
+
+    # -- persistence (the FROZEN tier) ------------------------------------
+
+    def persist(self, frozen) -> int:
+        """Write every extent's page bytes + trie position into a
+        :class:`~oncilla_tpu_torch.persist.FrozenStore` (``prefix-<chainhash>``
+        keys). Parent-first (:meth:`_walk` order) so a restored store is
+        always a valid trie prefix even if the write is cut short. A page
+        on the card comes down through K2 into the store's pinned staging
+        buffer first. Returns the number of extents persisted."""
+        n = 0
+        live = {f"prefix-{ext.key}" for ext in self.extents()}
+        for fkey in frozen.keys():
+            # The store is an exact manifest of the trie: a chain swept
+            # since the last persist must not resurrect at restore.
+            if fkey.startswith("prefix-") and fkey not in live:
+                frozen.delete(fkey)
+        for ext in self.extents():
+            data = self.store.read_host(ext.page)
+            frozen.write(
+                f"prefix-{ext.key}",
+                data.numpy().tobytes(),
+                meta={
+                    "kind": "prefix",
+                    "key": ext.key,
+                    "tokens": list(ext.tokens),
+                    "parent": ext.parent.key if ext.parent else "",
+                    "nbytes": int(ext.page.nbytes),
+                },
+            )
+            n += 1
+        obs_journal.record("prefix_persist", extents=n)
+        return n
+
+    def restore(self, frozen) -> int:
+        """Re-publish persisted extents from ``frozen`` into the trie —
+        the warm-boot leg. Parents restore before children (chain-hash
+        identity demands it); a chain with a missing or corrupt ancestor
+        is dropped WHOLE below the break (a child must never publish over
+        a hole — its chain hash would lie about the bytes beneath it).
+        Each page goes up as one ``alloc_page`` (K1 on the card).
+        Returns the number of extents re-published."""
+        recs: dict[str, tuple[str, dict]] = {}
+        for fkey in frozen.keys():
+            if not fkey.startswith("prefix-"):
+                continue
+            meta = frozen.meta(fkey)
+            if meta.get("kind") == "prefix":
+                recs[meta["key"]] = (fkey, meta)
+
+        def depth(key: str) -> int | None:
+            d = 0
+            while key:
+                rec = recs.get(key)
+                if rec is None:
+                    return None  # broken ancestry: skip the whole chain
+                key = rec[1]["parent"]
+                d += 1
+            return d
+
+        published: dict[str, SharedExtent | None] = {"": None}
+        n = 0
+        order = sorted(
+            (k for k in recs if depth(k) is not None),
+            key=lambda k: depth(k),
+        )
+        for key in order:
+            fkey, meta = recs[key]
+            parent_key = meta["parent"]
+            if parent_key not in published:
+                continue  # parent refused at read time below
+            try:
+                data = frozen.read_bytes(fkey)
+            except OcmError:
+                # Typed refusal (corrupt entry quarantined by the store):
+                # this chain ends here — descendants stay unpublished.
+                printd("prefix restore: dropping chain at %s "
+                       "(frozen entry refused)", fkey)
+                continue
+            # A writable host tensor (the file's bytes are read-only).
+            page = self.store.alloc_page(
+                torch.frombuffer(bytearray(data), dtype=torch.uint8),
+                shared=True,
+            )
+            ext = self.publish(
+                published[parent_key], tuple(meta["tokens"]), page
+            )
+            published[key] = ext
+            n += 1
+        obs_journal.record("prefix_restore", extents=n,
+                           persisted=len(recs))
+        return n
 
     def sweep(self) -> int:
         """Reclaim unreferenced LEAF extents (children first — an inner

@@ -19,8 +19,14 @@ Fixed-size KV pages live in exactly one tier:
   before it is uploaded. Without a backend, COLD is a LOCAL_HOST stand-in
   flagged ``cold_sim`` so a measurement can never mistake it for a remote
   tier.
-- ``FROZEN`` — disk: zero capacity here (the JAX package's store without
-  a ``frozen_backend``); the disk store waits for a later slice.
+- ``FROZEN`` — disk, through an attached :class:`~oncilla_tpu_torch.
+  persist.FrozenStore` (``frozen_backend``): watermark demotion spills COLD
+  victims to CRC-trailed extent files instead of destroying them, and a
+  persisted prefix cache restores from the same store on warm boot. A page
+  reaches the disk from host memory (a HOT page comes down through K2
+  first) and comes back as host bytes, which a promotion to HOT uploads
+  through K1. No backend attached (the default) = the tier has zero
+  capacity and the store is the three-tier one.
 
 Page bytes are ``uint8`` tensors and stay where their tier is: a HOT page
 read lands on the card (``get(out=)`` into a device tensor, K2), a WARM or
@@ -39,7 +45,11 @@ from dataclasses import dataclass, field
 
 import torch
 
-from oncilla_tpu_torch.core.errors import OcmError, OcmInvalidHandle
+from oncilla_tpu_torch.core.errors import (
+    OcmError,
+    OcmInvalidHandle,
+    OcmOutOfMemory,
+)
 from oncilla_tpu_torch.core.handle import OcmAlloc
 from oncilla_tpu_torch.core.hostmem import as_byte_tensor
 from oncilla_tpu_torch.core.kinds import OcmKind
@@ -67,6 +77,14 @@ TIER_PRIORITY = {
 
 _ORDER = (Tier.HOT, Tier.WARM, Tier.COLD, Tier.FROZEN)
 _DOWN = {Tier.HOT: Tier.WARM, Tier.WARM: Tier.COLD}  # demotion targets
+
+
+@dataclass(frozen=True)
+class FrozenPageHandle:
+    """Handle for a FROZEN-resident page: the store key of its extent
+    file (no arena offset exists — disk is addressed by name)."""
+
+    key: str
 
 
 @dataclass
@@ -113,18 +131,43 @@ class TieredPageStore:
         high_pct: int = 90,
         low_pct: int = 70,
         stats: ServingStats | None = None,
+        frozen_backend=None,
+        cold_capacity: int | None = None,
     ):
         self.ctx = ctx
         self.page_bytes = int(page_bytes)
-        # COLD is the floor (unbounded); FROZEN has no store yet.
+        # COLD is unbounded in the three-tier store (it is the floor);
+        # with a frozen backend attached it must be finite or nothing
+        # would ever spill to disk. FROZEN with no backend has zero
+        # capacity.
+        if cold_capacity is None:
+            cold_capacity = (
+                (1 << 30) if frozen_backend is None
+                else max(2 * int(warm_capacity), 1)
+            )
         self.capacity = {Tier.HOT: int(hot_capacity),
                          Tier.WARM: int(warm_capacity),
-                         Tier.COLD: 1 << 30, Tier.FROZEN: 0}
+                         Tier.COLD: int(cold_capacity),
+                         Tier.FROZEN: (1 << 30) if frozen_backend is not None
+                         else 0}
         self.high_pct = high_pct
         self.low_pct = low_pct
         self.cold_backend = cold_backend
+        self.frozen_backend = frozen_backend
         #: True when COLD is simulated in the local host arena.
         self.cold_sim = cold_backend is None
+        # Ephemeral frozen page keys continue past any leftover
+        # ``page-N`` files from a prior run so a stale extent is never
+        # silently overwritten by an unrelated page.
+        frz_start = 0
+        if frozen_backend is not None:
+            for k in frozen_backend.keys():
+                if k.startswith("page-"):
+                    try:
+                        frz_start = max(frz_start, int(k[5:]))
+                    except ValueError:
+                        pass
+        self._frz_ids = itertools.count(frz_start + 1)
         self.stats = stats or ServingStats()
         self.pages: dict[int, Page] = {}
         self._ids = itertools.count(1)
@@ -145,13 +188,21 @@ class TieredPageStore:
             return self.ctx.alloc(self.page_bytes, OcmKind.LOCAL_DEVICE)
         if tier == Tier.WARM:
             return self.ctx.alloc(self.page_bytes, OcmKind.LOCAL_HOST)
+        if tier == Tier.FROZEN:
+            if self.frozen_backend is None:
+                raise OcmError("no frozen backend attached")
+            if not self.frozen_backend.has_room(self.page_bytes):
+                raise OcmOutOfMemory("frozen store budget exhausted")
+            return FrozenPageHandle(f"page-{next(self._frz_ids)}")
         if self.cold_backend is not None:
             return self.cold_backend.alloc(self.page_bytes,
                                            OcmKind.REMOTE_HOST)
         return self.ctx.alloc(self.page_bytes, OcmKind.LOCAL_HOST)
 
     def _free_handle(self, tier: Tier, handle) -> None:
-        if tier == Tier.COLD and self.cold_backend is not None:
+        if tier == Tier.FROZEN:
+            self.frozen_backend.delete(handle.key)
+        elif tier == Tier.COLD and self.cold_backend is not None:
             self.cold_backend.free(handle)
         else:
             self.ctx.free(handle)
@@ -162,7 +213,13 @@ class TieredPageStore:
 
     def _put(self, tier: Tier, handle, data: torch.Tensor) -> None:
         self._count(tier, "put")
-        if tier == Tier.COLD and self.cold_backend is not None:
+        if tier == Tier.FROZEN:
+            # The disk takes host bytes: a page on the card comes down
+            # first (a HOT page's bytes reach here through K2).
+            self.frozen_backend.write(
+                handle.key, data.cpu().numpy().tobytes(),
+                meta={"kind": "page"})
+        elif tier == Tier.COLD and self.cold_backend is not None:
             self.cold_backend.put(handle, data, 0)
             self.stats.note_remote(data.numel(), inbound=False)
         else:
@@ -173,6 +230,16 @@ class TieredPageStore:
         """A page's bytes, landing in ``out`` when given (the registered
         receive path), else in a fresh tensor on the tier's side."""
         self._count(tier, "get")
+        if tier == Tier.FROZEN:
+            # A slow CRC-verified read; OcmFrozenCorrupt propagates
+            # typed — a corrupt extent is refused, never served.
+            raw = torch.frombuffer(
+                bytearray(self.frozen_backend.read_bytes(handle.key)),
+                dtype=torch.uint8)
+            if out is not None:
+                out[:nbytes].copy_(raw[:nbytes])
+                return out[:nbytes]
+            return raw[:nbytes]
         if tier == Tier.COLD and self.cold_backend is not None:
             if out is not None:
                 # The registered receive path: the page lands in ``out``.
@@ -257,6 +324,12 @@ class TieredPageStore:
             out = self._recvbuf
         return self._get(page.tier, page.handle, page.nbytes, out)
 
+    def read_host(self, page: Page) -> torch.Tensor:
+        """The page's bytes in the store's pinned staging buffer (valid
+        until the store's next such read): a HOT page comes down through
+        K2. What the disk is written from."""
+        return self.read_page(page, out=self._recvbuf)
+
     def write_page(self, page: Page, data) -> None:
         """Rewrite a page in place. Refused on a referenced shared page:
         that is what :meth:`cow` is for."""
@@ -311,7 +384,8 @@ class TieredPageStore:
         if page.tier == to:
             return
         if data is None:
-            data = self.read_page(page)
+            data = (self.read_host(page) if to == Tier.FROZEN
+                    else self.read_page(page))
         try:
             new_handle = self._alloc_in(to)
         except OcmError as e:
@@ -385,9 +459,16 @@ class TieredPageStore:
             key=lambda p: p.last_use,
         )
 
+    def _below(self, tier: Tier) -> Tier | None:
+        """Where ``tier``'s victims demote to: COLD spills to disk only
+        with a frozen backend attached (else it is the unbounded floor)."""
+        if tier == Tier.COLD and self.frozen_backend is not None:
+            return Tier.FROZEN
+        return _DOWN.get(tier)
+
     def _make_room(self, tier: Tier) -> None:
         """Demote until ``tier`` has a free slot."""
-        nxt = _DOWN.get(tier)
+        nxt = self._below(tier)
         if nxt is None:
             return
         while len(self._live(tier)) >= self.capacity[tier]:
@@ -399,8 +480,12 @@ class TieredPageStore:
 
     def enforce_watermarks(self) -> None:
         """Past a bounded tier's high watermark, demote LRU victims down
-        to its low watermark."""
-        for tier, nxt in _DOWN.items():
+        to its low watermark. With a frozen backend attached, COLD is
+        bounded too and spills to disk."""
+        for tier in (Tier.HOT, Tier.WARM, Tier.COLD):
+            nxt = self._below(tier)
+            if nxt is None:
+                continue
             cap = self.capacity[tier]
             # Floor at one page: a tiny tier never reads "demote all".
             high = max(cap * self.high_pct // 100, 1)

@@ -18,19 +18,20 @@ module (``P``), the mux module (``mux_rt``: its ``ChannelMap``,
 ``backoff_sleep``, the journal (``obs_journal``, which the port's client
 and daemons record in), the allocation ledger (``alloctrace``) and the
 error classes; the shims' errors derive from both packages' classes of
-the same name.
+the same name. The journal auditor the source imports
+(``from oncilla_tpu.obs import audit``) is the port's
+(``oncilla_tpu_torch/obs/audit.py``).
 
-Run: all 13 tests of ``test_mux.py``; 16 of the 17 of
-``test_timebudget.py``.
-Not run: ``test_timebudget.py::test_audit_catches_ack_after_cancel_ack``,
-which drives the JAX package's journal auditor (``obs/audit.py``) alone;
-the port has no auditor (ROADMAP A 4, the utilities).
+Run: all 13 tests of ``test_mux.py``; all 17 of ``test_timebudget.py``.
 """
 
 import pytest
 
+import oncilla_tpu.obs as jobs_pkg
+import oncilla_tpu.obs.audit  # noqa: F401 - bound on the package, then replaced
 import test_mux as src_mux
 import test_timebudget as src_timebudget
+from oncilla_tpu_torch.obs import audit as taudit
 from test_torch_daemon import export_ref
 from test_torch_mux import use_port_client
 
@@ -67,6 +68,7 @@ RUN_TIMEBUDGET = [
     "test_breaker_opens_in_transfer_ladder_and_recovers",
     "test_transfer_ladder_clamps_to_budget",
     "test_ocm_context_passes_deadline_through",
+    "test_audit_catches_ack_after_cancel_ack",
 ]
 
 export_ref(globals(), src_mux, RUN_MUX)
@@ -78,3 +80,4 @@ _SOURCES = {m.__name__: m for m in (src_mux, src_timebudget)}
 @pytest.fixture(autouse=True)
 def _port_client(request, monkeypatch):
     use_port_client(monkeypatch, _SOURCES[request.function.__module__])
+    monkeypatch.setattr(jobs_pkg, "audit", taudit)
