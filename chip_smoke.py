@@ -72,12 +72,16 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    for byte against their plain versions; then ``ceiling_probe()`` at its
    defaults and the port's ``benchmarks/bench.run`` (copy legs, ceiling,
    gb_sweep over a 2 GiB + 256 MiB arena up to 1 GiB with the amortized
-   leg, the mfu legs, kv_decode), their JSON lines and the grader's rows
-   (``benchmarks/check``); every ceiling leg must be measured, rows 1-3
+   leg, the wire legs early, the mfu legs, GUPS, the serving harness in a
+   subprocess on the card, kv_decode, the wire legs again), their JSON
+   lines and the grader's rows (``benchmarks/check``); ``detail.errors``
+   must be empty, every ceiling leg must be measured, rows 1-3
    must not read NO DATA, rows 4 (mfu_train) and 5 (device_fused against
-   plain) must be graded, ``detail.mfu`` and ``detail.mfu_train`` must be
-   above 0 with a train variant measured (all eight of
-   ``benchmarks/mfu.train_variants``).
+   plain) must be graded, row 6 (the wire legs, ``detail.dcn`` verified on
+   the native daemons) must pass, ``detail.mfu`` and ``detail.mfu_train``
+   must be above 0 with a train variant measured (all eight of
+   ``benchmarks/mfu.train_variants``), GUPS must conserve its updates and
+   the serving harness's chaos and warm-boot legs be byte-exact.
 8. wire — the daemon client (``oncilla_tpu_torch.runtime``), run after
    phase 5b while the weights are on the card: two daemons of the port's
    own copy of the native daemon (built with the C++ compiler, one compile
@@ -174,6 +178,21 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    recorder and auditor; then ``python -m oncilla_tpu_torch.persist
    --smoke`` exits 0. It prints TTFT, tokens/s, pages per tier and the
    disk bytes each way per arm.
+8e. harness — the serving harness (``python -m oncilla_tpu_torch.serving``),
+   right after 8d while the weights are on the card: (a) its paired cells
+   (``_run_cell`` without, then with, prefix sharing) on the Llama-3-8B
+   weights, the fleet of its measured cell (6 tenants of 32 prompt tokens,
+   t0 and t1 identical, 16 new tokens, 8-token pages, 4 HOT and 6 WARM
+   pages, no prefetch workers), COLD on 3 in-process daemons with 2
+   replicas and host arenas for every page twice: prefix hits and a CoW
+   adoption, fewer remote bytes shared, pages demoted and promoted, t0's
+   tokens t1's bit for bit, shared's tokens noshare's bit for bit or by the
+   margin rule, every rank drained, K1/K2 launches equal to each cell's HOT
+   puts/gets; (b) ``python -m oncilla_tpu_torch.serving --smoke`` exits 0
+   on the card (the tiny float32 model: every token assertion, the mux
+   leg, the chaos leg and the warm boot's TTFT held as written); (c) GUPS
+   over a handle's extent at a 16 MiB table (inside the L2) and a 1 GiB one,
+   updates conserved.
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -203,7 +222,9 @@ peer-mapped pointers over NVLink, byte-equal to the plain version and
 timed cuda:0 -> cuda:1 beside it and ``copy_``; then phase 8's check (c)
 with the plane's rows on those cards; then
 ``spmd_ring_sweep`` over those rows (every row sending to the next card at
-once, 1 MiB .. 256 MiB) beside every card's ``nvidia-smi`` line.
+once, 1 MiB .. 256 MiB), then ``gups_mesh`` over every card (a 16 MiB table
+a card, index rows exchanged card to card, updates conserved), beside every
+card's ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -1460,6 +1481,21 @@ def phase_bench(device, rate: float, read_kw: dict, copy_kw: dict, trip_kw: dict
         raise AssertionError(f"grader row 4 is not graded: {rows[3]}")
     if check_launches and not all(launches.values()):
         raise AssertionError(f"the bench did not launch every kernel: {launches}")
+    # The wire, GUPS and serving legs (bench.py's last three stages).
+    dcn = detail["dcn"]
+    if not (dcn["verified"] and dcn["native_daemons"]):
+        raise AssertionError(f"dcn leg not verified on the native daemons: "
+                             f"verified {dcn['verified']}, native "
+                             f"{dcn['native_daemons']}")
+    if rows[5][1] != "PASS":
+        raise AssertionError(f"grader row 6 does not pass: {rows[5]}")
+    if detail["gups_table_sum"] != detail["gups_updates"]:
+        raise AssertionError(f"gups: table sum {detail['gups_table_sum']} != "
+                             f"updates {detail['gups_updates']}")
+    serving = detail["serving"]
+    if not (serving["chaos"]["byte_exact"] and serving["warmboot"]["byte_exact"]):
+        raise AssertionError("serving: the chaos or warm-boot leg is not "
+                             "byte-exact")
 
     # 4. The kernels' rows: the probe's timed launch, beside its bound, its
     # plain version and (K6) one torch.sum times the sweeps.
@@ -1496,7 +1532,7 @@ def phase_bench(device, rate: float, read_kw: dict, copy_kw: dict, trip_kw: dict
         torch.cuda.empty_cache()
     log(f"[bench] phase {time.perf_counter() - t0:.3f} s")
     return {"rows": out, "ceiling": ceil, "bench": line, "grade": rows,
-            "launches": launches}
+            "launches": launches, "launches_serving": serving["launches"]}
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -3185,6 +3221,183 @@ def phase_warmboot(device, cfg, params, *, page_tokens: int,
     return report
 
 
+# -- phase 8e ---------------------------------------------------------------
+
+# The harness's paired cells at full width: the fleet of its measured cell
+# (serving/__main__.py run_bench: a page-aligned 32-token prompt, so the
+# identical t0/t1 pair takes the whole-page CoW adoption) on the card's
+# model. Prefetch workers stay off, so both cells seat the same batches (a run with workers
+# seats by their timing, phase 5b's run E) and t0's continuation can be held
+# to t1's bit for bit.
+HARNESS_SEED = 1234
+HARNESS_FLEET = {"tenants": 6, "shared_tokens": 28, "suffix_tokens": 4}
+HARNESS_NEW = 16
+HARNESS_PAGE_TOKENS = 8
+HARNESS_TIERS = (4, 6)  # HOT, WARM pages
+# GUPS over a handle's extent at the bench's size (a 16 MiB table, inside
+# the card's 50 MB L2) and at a 1 GiB table, 20 times the L2.
+HARNESS_GUPS_WORDS = (1 << 22, 1 << 28)
+HARNESS_GUPS = {"batch": 1 << 20, "steps": 32}
+_SMOKE_LAUNCHES = "serving smoke: launches "
+
+
+def phase_harness(device, cfg, params, *, seed: int = HARNESS_SEED,
+                  fleet=HARNESS_FLEET, new_tokens: int = HARNESS_NEW,
+                  page_tokens: int = HARNESS_PAGE_TOKENS, tiers=HARNESS_TIERS,
+                  gups_words=HARNESS_GUPS_WORDS, gups_kw=HARNESS_GUPS,
+                  check_launches: bool = True) -> dict:
+    """Phase 8e, the serving harness (``oncilla_tpu_torch.serving``'s
+    ``__main__``). (a) Its paired cells, ``_run_cell`` without and then with
+    prefix sharing, on ``params`` over ``inprocess_cluster(3)`` with the
+    harness's cluster settings (2 replicas, a fast detector) and host arenas
+    sized for every page twice: prefix hits and a CoW adoption in the shared
+    cell, fewer remote bytes than without sharing, pages demoted and
+    promoted, t0's tokens t1's bit for bit, the shared cell's tokens the
+    unshared one's bit for bit or by the margin rule, every rank drained,
+    and in each cell the K1/K2 launches equal its HOT puts/gets. (b) ``python
+    -m oncilla_tpu_torch.serving --smoke`` in a subprocess on the same
+    device must exit 0; its own K1/K2 launches come back on its output. (c)
+    ``gups_handle_best`` at each of ``gups_words``: updates conserved."""
+    import math
+
+    from oncilla_tpu_torch.benchmarks.gups import gups_handle_best
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.serving import __main__ as harness
+    from oncilla_tpu_torch.serving import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    hot, warm = tiers
+    prompts = harness._prompts(seed, vocab=cfg.vocab, **fleet)
+    page = engine_mod.ServingEngine.page_nbytes(cfg, page_tokens)
+    pages = sum(math.ceil((len(p) + new_tokens) / page_tokens) for p in prompts)
+    host_arena = max(32 * MiB, 2 * pages * page)
+    report = {"page_bytes": page, "pages": pages, "host_arena_bytes": host_arena,
+              "cells": {}}
+    log(f"[harness] (a) {len(prompts)} tenants of {len(prompts[0])} prompt "
+        f"tokens + {new_tokens}, pages of {page_tokens} tokens ({page} B), "
+        f"HOT {hot}, WARM {warm}, COLD on 3 in-process daemons of "
+        f"{host_arena} B host arena, 2 replicas")
+
+    # The harness builds its engines itself: a recording subclass in the
+    # engine module's place keeps each emitted token's logits row.
+    Recording = _recording_engine()
+    made = []
+
+    class HarnessEngine(Recording):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, graphs="engine", timed=False, **kw)
+            made.append(self)
+
+    launches = {}
+    real = engine_mod.ServingEngine
+    engine_mod.ServingEngine = HarnessEngine
+    try:
+        with inprocess_cluster(
+                3, config=harness._cluster_cfg(host_arena_bytes=host_arena)) as cl:
+            for name, share in (("noshare", False), ("shared", True)):
+                if on_card:
+                    torch.cuda.synchronize(device)
+                # The main path: counts from 0 just before the cell.
+                dma.reset_launches()
+                cell = harness._run_cell(
+                    cl, cfg, params, share=share, prompts=prompts,
+                    new_tokens=new_tokens, page_tokens=page_tokens, hot=hot,
+                    warm=warm, prefetch_workers=0, name=f"harness-{name}")
+                if on_card:
+                    torch.cuda.synchronize(device)
+                got = dma.launches()
+                eng = made[-1]
+                cell["hot_io"] = dict(eng.store.io["hbm"])
+                cell["rows"] = eng.rows
+                cell["launches"] = got
+                report["cells"][name] = cell
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+                log(f"[harness] (a) {name}: {cell['decode_tokens']} tokens in "
+                    f"{cell['wall_s']} s, {cell['tok_s']} tokens/s, hit ratio "
+                    f"{cell['hit_ratio']}, remote bytes {cell['remote_bytes']}, "
+                    f"prefix {cell['prefix']}, moves {cell['moves']}, HOT io "
+                    f"{cell['hot_io']}, launches write_rows={got['write_rows']} "
+                    f"read_rows={got['read_rows']}")
+            report["drained_ranks"] = harness._assert_drained(cl)
+    finally:
+        engine_mod.ServingEngine = real
+    sh, ns = report["cells"]["shared"], report["cells"]["noshare"]
+    remote = [sum(c["remote_bytes"].values()) for c in (sh, ns)]
+    report["remote_bytes_shared_noshare"] = remote
+    if sh["prefix"]["hits"] == 0 or sh["prefix"]["cow"] == 0:
+        raise AssertionError(f"harness: the shared cell took no prefix hit or "
+                             f"no CoW adoption: {sh['prefix']}")
+    if not remote[0] < remote[1]:
+        raise AssertionError(f"harness: sharing did not cut remote bytes "
+                             f"({remote[0]} vs {remote[1]})")
+    if sh["moves"]["demote"] == 0 or sh["moves"]["promote"] == 0:
+        raise AssertionError(f"harness: tiering never moved a page: {sh['moves']}")
+    if sh["outputs"]["t0"] != sh["outputs"]["t1"]:
+        raise AssertionError(f"harness: identical prompts decoded apart: "
+                             f"{sh['outputs']['t0']} vs {sh['outputs']['t1']}")
+    report["shared_vs_noshare"] = (
+        "bits" if sh["outputs"] == ns["outputs"] else _margin_check(ns["rows"], sh["rows"]))
+    if report["shared_vs_noshare"] != "bits":
+        _hold_margin("harness shared against noshare", report["shared_vs_noshare"])
+    log(f"[harness] (a) shared vs noshare: {json.dumps(report['shared_vs_noshare'])}; "
+        f"drained ranks {report['drained_ranks']}")
+    if check_launches:
+        for name, c in report["cells"].items():
+            got = (c["launches"]["write_rows"], c["launches"]["read_rows"])
+            want = (c["hot_io"]["put"], c["hot_io"]["get"])
+            if got != want or not all(got):
+                raise AssertionError(f"harness {name}: K1/K2 launches {got} != "
+                                     f"HOT puts/gets {want}")
+    for c in report["cells"].values():
+        del c["rows"], c["outputs"]
+    del made
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) The harness's smoke as its users run it, on the same device.
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "oncilla_tpu_torch.serving", "--smoke"]
+    if not on_card:
+        cmd += ["--device", "cpu"]
+    smoke = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=600)
+    lines = smoke.stdout.strip().splitlines()
+    report["smoke"] = {"rc": smoke.returncode, "seconds": time.perf_counter() - t0,
+                       "tail": lines[-1:]}
+    log(f"[harness] (b) serving --smoke: {json.dumps(report['smoke'])}")
+    if smoke.returncode != 0:
+        raise AssertionError(f"python -m oncilla_tpu_torch.serving --smoke exited "
+                             f"{smoke.returncode}: {smoke.stdout[-3000:]}"
+                             f"{smoke.stderr[-3000:]}")
+    sub = json.loads(next(ln for ln in lines if ln.startswith(_SMOKE_LAUNCHES))
+                     [len(_SMOKE_LAUNCHES):])
+    report["smoke"]["launches"] = sub
+    for k, v in sub.items():
+        launches[k] = launches.get(k, 0) + v
+    log("[harness] (b) " + "\n".join(lines[-12:]))
+
+    # (c) GUPS over a handle's extent, L2-resident and HBM-sized.
+    report["gups"] = {}
+    for words in gups_words:
+        g = gups_handle_best(words=words, seed=seed, device=device, **gups_kw)
+        if g["table_sum"] != g["updates"]:
+            raise AssertionError(f"gups at {words} words: table sum "
+                                 f"{g['table_sum']} != updates {g['updates']}")
+        report["gups"][str(words)] = g
+        log(f"[harness] (c) gups at {words} words ({4 * words} B): "
+            f"{json.dumps(g)}")
+    if on_card:
+        torch.cuda.empty_cache()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[harness] checks passed; launches {launches}; phase "
+        f"{report['seconds']:.3f} s")
+    return report
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -3553,6 +3766,16 @@ def across_cards() -> int:
     ring = sweep.spmd_ring_sweep(mesh, min_bytes=1 * MiB, max_bytes=256 * MiB, iters=16)
     print(json.dumps({"spmd_ring_sweep": ring.as_dict(),
                       "bound_gbps_per_row": NVLINK_RATE / 1e9}))
+    # GUPS across the cards: index rows exchanged card to card each step.
+    from oncilla_tpu_torch.benchmarks.gups import gups_mesh
+
+    g = gups_mesh([torch.device("cuda", i) for i in range(count)],
+                  words_per_dev=1 << 22, batch=1 << 20, steps=32)
+    log(f"[gups_mesh] {json.dumps(g)}")
+    if g["table_sum"] != g["updates"]:
+        raise AssertionError(f"gups_mesh: table sum {g['table_sum']} != "
+                             f"updates {g['updates']}")
+    print(json.dumps({"gups_mesh": g}))
     for i, smi in enumerate(card["cards"]):
         print(f"card {i}: {smi}")
     print(card["smi"])
@@ -3636,6 +3859,7 @@ def main(argv=None) -> int:
         "cfg": cfg, "params": params, "page_tokens": ENGINE_PAGE_TOKENS,
         "runs": engine["runs"], "wire": wire["engine"]})
     warmboot = phase_warmboot(device, cfg, params, page_tokens=ENGINE_PAGE_TOKENS)
+    harness = phase_harness(device, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -3662,6 +3886,10 @@ def main(argv=None) -> int:
                  "serving_engine": engine_launches, "wire": wire["launches"],
                  "daemon_py": daemons_py["launches"], "client": client["launches"],
                  "warmboot": warmboot["launches"],
+                 # 8e and the harness's own processes (its smoke in 8e, its
+                 # bench cells in phase 7's serving stage).
+                 "harness": {k: v + bench["launches_serving"].get(k, 0)
+                             for k, v in harness["launches"].items()},
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -3724,6 +3952,9 @@ def main(argv=None) -> int:
             "warm_vs_cold": warmboot["warm_vs_cold"],
             "persist_smoke": warmboot["persist_smoke"],
             "seconds": warmboot["seconds"]},
+        "harness": {k: harness[k] for k in (
+            "page_bytes", "pages", "cells", "remote_bytes_shared_noshare",
+            "shared_vs_noshare", "drained_ranks", "smoke", "gups", "seconds")},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",
@@ -3733,7 +3964,8 @@ def main(argv=None) -> int:
                   "grade": [r[:2] for r in bench["grade"]],
                   **{k: bench["bench"]["detail"].get(k) for k in (
                       "mfu", "mfu_forward_tflops", "mfu_train", "mfu_train_tflops",
-                      "mfu_train_variants")},
+                      "mfu_train_variants", "dcn", "gups", "gups_method",
+                      "gups_updates", "gups_table_sum", "serving")},
                   "stage_s": bench["bench"]["detail"]["stage_s"]},
         "train": {k: trn.get(k) for k in (
             "batch", "seq", "losses", "step_ms", "step_ms_median", "tokens_per_s",

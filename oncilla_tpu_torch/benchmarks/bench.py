@@ -20,12 +20,23 @@ costs only its own fields:
   variant's (``detail.mfu_train``, ``mfu_train_tflops``,
   ``mfu_train_variants``) against the card's datasheet bf16 rate
   (:mod:`.mfu`);
+- ``dcn_early`` (after ``gb_sweep``) and ``dcn_tail`` (last): the wire
+  legs (:func:`bench_dcn`, :mod:`.dcn`): the stripe × window sweep over the
+  native daemon pair (Python daemons where the native one cannot be built;
+  ``native_daemons`` says which ran), the fabric sweep (tcp against shm) and
+  the Python-against-native daemon sweep, at 256 MiB, every rate in Gbit/s.
+  A verified fresh result replaces what is banked; an unverified one only
+  fills an empty slot;
+- ``gups`` (after ``mfu_train``): GUPS over an ocm handle's extent,
+  :func:`.gups.gups_handle_best` at a 16 MiB table;
+- ``serving``: the serving harness, ``python -m oncilla_tpu_torch.serving
+  --bench`` in a subprocess on the bench's device, its JSON line under
+  ``detail.serving`` (:func:`bench_serving`);
 - ``kv_decode``: paged-KV decode tokens/s, the small config, 256 tokens in
   pages of 128.
 
-``dcn``, ``gups`` and ``serving`` wait for later slices of the port and
-stand in ``detail.errors`` as "not ported"; ``ok`` is true when no other
-error is there. Grade a line with :mod:`.check`.
+``ok`` is true when ``detail.errors`` is empty: a stage skipped or failed
+fails the line. Grade a line with :mod:`.check`.
 
 Run on a CUDA machine: ``python -m oncilla_tpu_torch.benchmarks.bench``.
 Without CUDA it raises ``OcmDeviceError``; there is no fallback to the CPU.
@@ -37,7 +48,10 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -46,10 +60,7 @@ from oncilla_tpu_torch import OcmKind
 from oncilla_tpu_torch.benchmarks import copy_bench
 from oncilla_tpu_torch.utils.platform import resolve_device
 
-NOT_PORTED = "not ported"
-# bench.py's stages that wait for later slices: the data plane's legs
-# through the cluster (dcn, gups) and the serving harness.
-_LATER = ("dcn", "gups", "serving")
+_REPO = Path(__file__).resolve().parents[2]
 
 GB_ARENA = (2 << 30) + (256 << 20)
 # (min, max, iters, share of the stage's seconds, write cap, descending):
@@ -98,6 +109,80 @@ def bench_gb_sweep(errors: dict, seconds: float = 205.0, device=None,
         return {}
 
 
+def bench_dcn(errors: dict, nbytes: int = 256 << 20) -> dict:
+    """bench.py's ``bench_dcn`` (bench.py:755-808): the stripe × window
+    sweep over one daemon pair (the native daemon, else the Python one),
+    its headline the best cell and ``single_*_gbps`` the single-stream
+    baseline; then the fabric sweep (``fabric``) at ``nbytes`` and the
+    Python-against-native daemon sweep (``native``). Every rate is Gbit/s.
+    The wire carries host buffers: no card memory is touched."""
+    from oncilla_tpu_torch.benchmarks.dcn import (
+        dcn_daemon_sweep,
+        dcn_fabric_sweep,
+        dcn_stripe_sweep,
+    )
+
+    try:
+        try:
+            r = dcn_stripe_sweep(nbytes=nbytes, iters=1, native=True)
+        except Exception:  # noqa: BLE001 — native daemon unavailable: measure anyway
+            r = dcn_stripe_sweep(nbytes=nbytes, iters=1, native=False)
+        out = {
+            "put_gbps": round(r["put_gbps"], 3),
+            "get_gbps": round(r["get_gbps"], 3),
+            "single_put_gbps": round(r["single_put_gbps"], 3),
+            "single_get_gbps": round(r["single_get_gbps"], 3),
+            "striped_put_gbps": round(r["striped_put_gbps"], 3),
+            "striped_get_gbps": round(r["striped_get_gbps"], 3),
+            "unit": r.get("unit", "Gbit/s"),
+            "best": r["best"],
+            "cells": r["cells"],
+            "nbytes": r["nbytes"],
+            "native_daemons": r["native_daemons"],
+            "verified": r["verified"],
+        }
+        try:
+            out["fabric"] = dcn_fabric_sweep(sizes=(nbytes,), iters=1)
+        except Exception as e:  # noqa: BLE001
+            errors["dcn_fabric"] = f"{type(e).__name__}: {e}"
+        try:
+            out["native"] = dcn_daemon_sweep(nbytes=nbytes, iters=1)
+        except Exception as e:  # noqa: BLE001
+            errors["dcn_native"] = f"{type(e).__name__}: {e}"
+        return out
+    except Exception as e:  # noqa: BLE001
+        errors["dcn"] = f"{type(e).__name__}: {e}"
+        return {}
+
+
+def bench_serving(errors: dict, timeout_s: float = 420.0, device=None) -> dict:
+    """bench.py's ``bench_serving`` (bench.py:811-841): ``python -m
+    oncilla_tpu_torch.serving --bench`` in a subprocess on ``device`` (the
+    engine belongs on the card; the process keeps its cluster and graphs
+    out of this one); its last stdout line, parsed."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.empty_cache()  # the subprocess's engine needs the card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(_REPO), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "oncilla_tpu_torch.serving", "--bench"]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=timeout_s, env=env)
+        if r.returncode != 0:
+            errors["serving"] = f"rc={r.returncode}: {r.stderr.strip()[-300:]}"
+            return {}
+        return json.loads(r.stdout.strip().splitlines()[-1])
+    except subprocess.TimeoutExpired:
+        errors["serving"] = f"timed out after {timeout_s:.0f}s"
+        return {}
+    except Exception as e:  # noqa: BLE001 — a failed stage costs its own fields
+        errors["serving"] = f"{type(e).__name__}: {e}"
+        return {}
+
+
 def _rounded(x, digits: int):
     return None if x is None else round(x, digits)
 
@@ -105,13 +190,15 @@ def _rounded(x, digits: int):
 def run(device=None, deadline_s: float = 840.0, timing: bool = True,
         copy_kw: dict | None = None, ceiling_kw: dict | None = None,
         gb_kw: dict | None = None, kv_kw: dict | None = None,
-        mfu_kw: dict | None = None) -> dict:
+        mfu_kw: dict | None = None, dcn_kw: dict | None = None,
+        gups_kw: dict | None = None) -> dict:
     """Every stage on ``device``; returns the JSON object. ``*_kw`` override
     a stage's sizes (the defaults are bench.py's); ``mfu_kw`` holds
     ``forward`` (:func:`.mfu.mfu_forward`'s arguments) and ``train``
     (:func:`.mfu.mfu_train_best`'s, ``variants`` among them)."""
     from oncilla_tpu_torch.benchmarks import mfu
     from oncilla_tpu_torch.benchmarks.ceiling import ceiling_probe
+    from oncilla_tpu_torch.benchmarks.gups import gups_handle_best
     from oncilla_tpu_torch.benchmarks.kv_decode import run_bench
 
     device = resolve_device(device)
@@ -166,6 +253,22 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
             device=device, timing=timing, **(gb_kw or {}))
     mark("gb_sweep")
 
+    def bank_dcn() -> None:
+        """A verified fresh result replaces whatever is banked (and clears
+        a stale failure note); an unverified one only fills an empty slot
+        (bench.py:651-660)."""
+        fresh = bench_dcn(errors, **(dcn_kw or {}))
+        if fresh.get("verified"):
+            detail["dcn"] = fresh
+            errors.pop("dcn", None)
+        elif not detail.get("dcn"):
+            detail["dcn"] = fresh
+
+    # The wire early (bench.py:665-667), and again at the very end.
+    if "dcn" not in detail and budgeted("dcn_early", 45):
+        bank_dcn()
+    mark("dcn_early")
+
     # The 1.1B decoder's MFU: bench.py's two stages, each within 240 s.
     mfu_kw = mfu_kw or {}
     if budgeted("mfu_forward", 240):
@@ -192,8 +295,26 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
             errors["mfu_train"] = f"{type(e).__name__}: {e}"
     mark("mfu_train")
 
-    for name in _LATER:
-        errors[name] = NOT_PORTED
+    # GUPS over a handle's extent (bench.py:701-710); conservation gates it.
+    if budgeted("gups", 120):
+        try:
+            g = gups_handle_best(**{"words": 1 << 22, "batch": 1 << 20,
+                                    "steps": 32, **(gups_kw or {}),
+                                    "device": device})
+            detail["gups"] = _rounded(g["gups"], 4) if timing else None
+            detail["gups_method"] = g["mode"]
+            detail["gups_updates"] = g["updates"]
+            detail["gups_table_sum"] = g["table_sum"]
+        except Exception as e:  # noqa: BLE001
+            errors["gups"] = f"{type(e).__name__}: {e}"
+    mark("gups")
+
+    # The serving harness in a subprocess (bench.py:722-727).
+    if budgeted("serving", 150):
+        detail["serving"] = bench_serving(
+            errors, timeout_s=min(420.0, max(time_left() - 90.0, 120.0)),
+            device=device)
+    mark("serving")
 
     if budgeted("kv_decode", 200):
         try:
@@ -207,8 +328,14 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
             errors["kv_decode"] = f"{type(e).__name__}: {e}"
     mark("kv_decode")
 
+    # The wire again after the heavy stages (bench.py:750-751); a failed or
+    # skipped tail never clobbers the early echo.
+    if budgeted("dcn_tail", 60):
+        bank_dcn()
+    mark("dcn_tail")
+
     detail["errors"] = errors
-    out["ok"] = all(v == NOT_PORTED for v in errors.values())
+    out["ok"] = not errors
     return out
 
 

@@ -13,7 +13,8 @@ Rows:
 4. train MFU >= 0.60 (the JAX grader's threshold, against the card's
    datasheet dense bf16 rate);
 5. paged ``device_fused`` decode >= ``plain`` tokens/s;
-6. the dcn legs, which read NO DATA until that stage is ported.
+6. the wire legs (``detail.dcn``, :func:`.bench.bench_dcn`) banked and
+   verified: every cell's bytes read back equal to what was put.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def grade(doc: dict) -> list[tuple[str, str, str]]:
         None if fused is None or plain is None else fused >= plain,
         f"device_fused={fused} plain={plain}")
 
-    # 6. DCN daemon-path bandwidth recorded (needs the wire client).
+    # 6. DCN daemon-path bandwidth recorded and verified.
     dcn = d.get("dcn") or {}
     row("dcn banked and verified",
         None if not dcn else bool(dcn.get("verified")),

@@ -1,0 +1,827 @@
+"""DCN data-plane bandwidth: the daemon-served one-sided put/get path (the
+port's copy of ``oncilla_tpu.benchmarks.dcn``, function for function).
+
+BASELINE config 2 — "2-host remote alloc + one-sided put/get (daemon
+path)" (the reference's ocm_test test 2 / extoll_rma2_transfer timing,
+test/ocm_test.c:132-206, src/extoll.c:47-173). Two daemons on this host, a
+client attached to rank 0, a REMOTE_HOST allocation placed on rank 1, and
+timed whole-region put/get through the striped pipelined engine
+(multi-stream + ACK coalescing + adaptive windowing; ``dcn_stripe_sweep``
+maps the stripe-count × window grid and pins the single-stream baseline).
+On one host this rides loopback TCP, so the number is an upper bound on
+protocol+engine overhead rather than a fabric measurement.
+
+Every ``*_gbps`` key is gigaBITS per second (``"unit": "Gbit/s"``), as in
+the JAX package; the port's other wire figures (chip_smoke phase 8) are
+gigaBYTES per second.
+
+    python -m oncilla_tpu_torch.benchmarks.dcn --smoke|--sweep|--fabrics|--mux|--hedge
+        [--daemon python|native|both] [--nbytes N]
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+
+from oncilla_tpu_torch.core.context import Ocm
+from oncilla_tpu_torch.core.kinds import OcmKind
+from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+from oncilla_tpu_torch.runtime.cluster import inprocess_cluster, local_cluster
+from oncilla_tpu_torch.utils.config import OcmConfig
+
+
+@contextlib.contextmanager
+def _daemon_pair(cfg: OcmConfig, native: bool, extra_env: dict | None = None):
+    """Two REAL daemon processes on loopback (the port's copy of the native
+    daemon, built by ``runtime/cluster.build_daemon``, or the port's Python
+    daemon, ``python -m oncilla_tpu_torch.runtime.daemon``) — in-process
+    daemon threads would share the client's GIL and understate the data
+    plane by ~2x. ``extra_env`` reaches the python daemons only (the fabric
+    sweep sets OCM_FABRIC=shm there; the native daemon serves no fabrics and
+    would silently ignore it). Yields the pair's entries."""
+    if native:
+        kw = {"daemon": "native", "heartbeat_s": 5.0, "lease_s": 120.0}
+    else:
+        kw = {"daemon": "python", "env": extra_env}
+    with local_cluster(2, config=cfg, host_arena_bytes=cfg.host_arena_bytes,
+                       device_arena_bytes=cfg.device_arena_bytes, **kw) as cl:
+        yield cl.entries
+
+
+def _make_cfg(
+    nbytes: int, chunk_bytes: int, inflight: int, stripes: int,
+    adaptive: bool, fabric: str = "tcp",
+) -> OcmConfig:
+    return OcmConfig(
+        host_arena_bytes=nbytes + chunk_bytes,
+        device_arena_bytes=1 << 20,
+        chunk_bytes=chunk_bytes,
+        inflight_ops=inflight,
+        dcn_stripes=stripes,
+        dcn_adaptive=adaptive,
+        heartbeat_s=5.0,
+        fabric=fabric,
+    )
+
+
+def _timed_roundtrip(
+    entries, cfg: OcmConfig, nbytes: int, iters: int, data,
+) -> dict:
+    """One client against live daemons: timed whole-region put/get (best
+    of ``iters``) + the verified-roundtrip flag."""
+    client = ControlPlaneClient(entries, 0, config=cfg, heartbeat=False)
+    try:
+        # Full membership before placement (a 1-node cluster demotes).
+        deadline = time.time() + 30
+        while time.time() < deadline and client.status()["nnodes"] < 2:
+            time.sleep(0.1)
+        # Host memory only, by design: the leg measures the wire, and its
+        # buffers are host numpy arrays. The context's device arm is a CPU
+        # buffer that nothing here touches, so the leg holds no card memory
+        # (the card-side REMOTE_HOST rates are chip_smoke phase 8's).
+        ctx = Ocm(config=cfg, remote=client, device="cpu")
+        h = ctx.alloc(nbytes, OcmKind.REMOTE_HOST)
+        assert h.is_remote, "placement demoted; membership race?"
+        put_s, get_s = [], []
+        # Reused destination buffer (the registered-receive-buffer idiom,
+        # as ocm_test reuses its buffer across iterations): a fresh
+        # destination per get would bill one page fault per 4 KiB to the
+        # data plane.
+        got = np.empty(nbytes, dtype=np.uint8)
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            ctx.put(h, data)
+            put_s.append(time.perf_counter() - t0)
+            got[:] = 0
+            t0 = time.perf_counter()
+            ctx.get(h, out=got)
+            get_s.append(time.perf_counter() - t0)
+        ok = bool(np.array_equal(got, data))
+        ctx.free(h)
+    finally:
+        client.close()
+    return {
+        # gigaBITS/s: the unit every `gbps` key reports (Tracer's
+        # note_transfer / snapshot and the STATUS JSON were unified on
+        # it; this bench used to emit gigaBYTES under the same key).
+        "put_gbps": nbytes * 8 / min(put_s) / 1e9,
+        "get_gbps": nbytes * 8 / min(get_s) / 1e9,
+        "unit": "Gbit/s",
+        "verified": ok,
+    }
+
+
+def dcn_loopback_bench(
+    nbytes: int = 256 << 20,
+    iters: int = 3,
+    chunk_bytes: int = 16 << 20,
+    inflight: int = 2,
+    native: bool = True,
+    stripes: int = 4,
+    adaptive: bool = True,
+) -> dict:
+    """Timed put/get of a ``nbytes`` REMOTE_HOST region through two live
+    daemon PROCESSES (loopback). Returns Gbit/s per direction (best of
+    ``iters``) plus the verified-roundtrip flag. ``stripes=1`` selects
+    the original single-stream engine (the OCM_DCN_STRIPES=1 path)."""
+    cfg = _make_cfg(nbytes, chunk_bytes, inflight, stripes, adaptive)
+    with _daemon_pair(cfg, native=native) as entries:
+        r = _timed_roundtrip(entries, cfg, nbytes, iters, _bench_data(nbytes))
+    r.update({
+        "nbytes": nbytes,
+        "iters": iters,
+        "native_daemons": native,
+        "stripes": stripes,
+    })
+    return r
+
+
+def _bench_data(nbytes: int) -> np.ndarray:
+    return np.random.default_rng(0).integers(0, 256, nbytes, dtype=np.uint8)
+
+
+def dcn_stripe_sweep(
+    nbytes: int = 256 << 20,
+    stripes: tuple = (1, 2, 4, 8),
+    windows: tuple = (2, 4),
+    chunk_bytes: int = 16 << 20,
+    iters: int = 1,
+    native: bool = True,
+) -> dict:
+    """Stripe-count × window-depth sweep over ONE live daemon pair: the
+    trajectory record for the multi-stream data plane. Adaptive tuning is
+    pinned OFF inside the sweep so each cell measures exactly the
+    (stripes, window) it names; ``s1`` cells are the single-stream
+    baseline the striped cells are judged against."""
+    cfg0 = _make_cfg(nbytes, chunk_bytes, max(windows), max(stripes), False)
+    data = _bench_data(nbytes)
+    cells: dict[str, dict] = {}
+    with _daemon_pair(cfg0, native=native) as entries:
+        for s in stripes:
+            for w in windows:
+                cfg = _make_cfg(nbytes, chunk_bytes, w, s, False)
+                r = _timed_roundtrip(entries, cfg, nbytes, iters, data)
+                cells[f"s{s}_w{w}"] = {
+                    "put_gbps": round(r["put_gbps"], 3),
+                    "get_gbps": round(r["get_gbps"], 3),
+                    "verified": r["verified"],
+                }
+    single = [v for k, v in cells.items() if k.startswith("s1_")]
+    multi = [v for k, v in cells.items() if not k.startswith("s1_")]
+    best = max(cells.values(), key=lambda v: v["put_gbps"] + v["get_gbps"])
+    best_key = next(k for k, v in cells.items() if v is best)
+    return {
+        "nbytes": nbytes,
+        "native_daemons": native,
+        "unit": "Gbit/s",
+        "cells": cells,
+        "best": best_key,
+        "put_gbps": best["put_gbps"],
+        "get_gbps": best["get_gbps"],
+        "single_put_gbps": max(v["put_gbps"] for v in single),
+        "single_get_gbps": max(v["get_gbps"] for v in single),
+        "striped_put_gbps": max((v["put_gbps"] for v in multi), default=0.0),
+        "striped_get_gbps": max((v["get_gbps"] for v in multi), default=0.0),
+        "verified": all(v["verified"] for v in cells.values()),
+    }
+
+
+def dcn_daemon_sweep(
+    nbytes: int = 256 << 20,
+    stripes: tuple = (1, 2, 4),
+    windows: tuple = (2,),
+    chunk_bytes: int = 16 << 20,
+    iters: int = 1,
+) -> dict:
+    """The ``--daemon`` axis as a PAIRED sweep: every (stripes, window)
+    cell measured against BOTH serving daemons on this host — the Python
+    reference implementation and the native C++ twin — with the same
+    client config and the same data, so the per-cell ratio isolates the
+    serving side. ``ratio`` is native/python per direction per cell;
+    ``native_min_ratio`` is the worst cell (the "native ≥ python
+    everywhere" acceptance number — on a 1-core container client and
+    daemons share the core, so expect ratios near 1 rather than the
+    multicore win; record what is measured)."""
+    data = _bench_data(nbytes)
+    cfg0 = _make_cfg(nbytes, chunk_bytes, max(windows), max(stripes), False)
+    cells: dict[str, dict] = {}
+    for flavor, native_flag in (("py", False), ("nat", True)):
+        with _daemon_pair(cfg0, native=native_flag) as entries:
+            for s in stripes:
+                for w in windows:
+                    cfg = _make_cfg(nbytes, chunk_bytes, w, s, False)
+                    r = _timed_roundtrip(entries, cfg, nbytes, iters, data)
+                    cells[f"{flavor}_s{s}_w{w}"] = {
+                        "put_gbps": round(r["put_gbps"], 3),
+                        "get_gbps": round(r["get_gbps"], 3),
+                        "verified": r["verified"],
+                    }
+    ratio: dict[str, dict] = {}
+    for s in stripes:
+        for w in windows:
+            py, nat = cells[f"py_s{s}_w{w}"], cells[f"nat_s{s}_w{w}"]
+            ratio[f"s{s}_w{w}"] = {
+                "put": round(nat["put_gbps"] / max(py["put_gbps"], 1e-9), 3),
+                "get": round(nat["get_gbps"] / max(py["get_gbps"], 1e-9), 3),
+            }
+    return {
+        "nbytes": nbytes,
+        "unit": "Gbit/s",
+        "cells": cells,
+        "ratio": ratio,
+        "native_min_ratio": round(
+            min(min(v["put"], v["get"]) for v in ratio.values()), 3
+        ),
+        "verified": all(v["verified"] for v in cells.values()),
+    }
+
+
+def dcn_fabric_sweep(
+    sizes: tuple = (4 << 20, 64 << 20, 256 << 20),
+    iters: int = 3,
+    chunk_bytes: int = 16 << 20,
+) -> dict:
+    """Fabric × size sweep (fabric/): the framed-TCP engine against the
+    same-host shared-memory fabric over python daemon PROCESSES. Three
+    cells per size —
+
+    - ``tcp_s1``: single-stream lockstep tcp, the pre-stripe baseline the
+      shm speedup is judged against;
+    - ``tcp``: the striped/coalesced engine at its default width;
+    - ``shm``: the one-sided memcpy path (daemons spawned with
+      OCM_FABRIC=shm, so their arenas are segment-backed).
+
+    The shm number is the CO-LOCATED ceiling: both endpoints share DRAM,
+    so it measures memcpy + one control round-trip, not a network. The
+    C++ twin serves no fabrics, so every cell runs python daemons — the
+    tcp cells here are therefore comparable to each other and to ``shm``,
+    but NOT to the native-daemon numbers in ``dcn_stripe_sweep``."""
+    out_cells: dict[str, dict] = {}
+    for nbytes in sizes:
+        data = _bench_data(nbytes)
+        for cell, stripes, fabric in (
+            ("tcp_s1", 1, "tcp"),
+            ("tcp", 4, "tcp"),
+            ("shm", 1, "shm"),
+        ):
+            cfg = _make_cfg(nbytes, chunk_bytes, 2, stripes, False, fabric)
+            extra = {"OCM_FABRIC": fabric} if fabric != "tcp" else None
+            with _daemon_pair(cfg, native=False, extra_env=extra) as entries:
+                r = _timed_roundtrip(entries, cfg, nbytes, iters, data)
+            out_cells[f"{cell}_{nbytes >> 20}m"] = {
+                "put_gbps": round(r["put_gbps"], 3),
+                "get_gbps": round(r["get_gbps"], 3),
+                "verified": r["verified"],
+            }
+    return {
+        "sizes": list(sizes),
+        "iters": iters,
+        "unit": "Gbit/s",
+        "native_daemons": False,
+        "cells": out_cells,
+        "verified": all(v["verified"] for v in out_cells.values()),
+    }
+
+
+def _mux_lockstep_arm(entries, cfg, tenants: int, rounds: int,
+                      op_bytes: int) -> dict:
+    """The TODAY arm: one blocking ControlPlaneClient per tenant (its
+    own ctrl socket + pool), one thread per tenant, every small op a
+    lockstep round trip — exactly what the mux core replaces."""
+    import threading
+
+    import numpy as np
+
+    clients = [
+        ControlPlaneClient(entries, 0, config=cfg, heartbeat=False,
+                           app_id=40_000 + i)
+        for i in range(tenants)
+    ]
+    try:
+        handles = [
+            c.alloc(op_bytes, OcmKind.REMOTE_HOST) for c in clients
+        ]
+        datas = [
+            np.full(op_bytes, i % 256, dtype=np.uint8)
+            for i in range(tenants)
+        ]
+        errs: list = [None] * tenants
+
+        def worker(i: int) -> None:
+            c, h, d = clients[i], handles[i], datas[i]
+            try:
+                for _ in range(rounds):
+                    c.put(h, d)
+                    got = c.get(h, op_bytes)
+                    if np.asarray(got[:1]).tobytes() != d[:1].tobytes():
+                        raise AssertionError(f"tenant {i} readback bleed")
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                errs[i] = e
+
+        threads = [
+            threading.Thread(target=worker, args=(i,),
+                             name=f"lockstep-{i}")
+            for i in range(tenants)
+        ]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        dt = time.perf_counter() - t0
+        for e in errs:
+            if e is not None:
+                raise e
+        sockets = sum(
+            c.client_footprint()["sockets"] for c in clients
+        )
+        for c, h in zip(clients, handles):
+            c.free(h)
+    finally:
+        for c in clients:
+            c.close()
+    ops = tenants * rounds * 2  # one put + one get per round
+    return {
+        "ops_per_s": round(ops / dt, 1),
+        "wall_s": round(dt, 3),
+        "sockets": sockets,
+        "threads": tenants,
+    }
+
+
+def _mux_async_arm(entries, cfg, tenants: int, rounds: int,
+                   op_bytes: int) -> dict:
+    """The mux arm: every tenant an AsyncOcm coroutine over ONE shared
+    ChannelMap — one connection per peer for the whole fleet, tagged
+    pipelining, batched writes."""
+    import asyncio
+
+    import numpy as np
+
+    from oncilla_tpu_torch.runtime.mux import AsyncOcm, ChannelMap
+
+    async def run() -> dict:
+        loop = asyncio.get_running_loop()
+        chmap = ChannelMap(loop, cfg)
+        try:
+            ocms = await asyncio.gather(*(
+                AsyncOcm.open(entries, 0, config=cfg,
+                              app_id=50_000 + i, channels=chmap,
+                              heartbeat=False)
+                for i in range(tenants)
+            ))
+            handles = await asyncio.gather(*(
+                o.alloc(op_bytes) for o in ocms
+            ))
+            datas = [
+                np.full(op_bytes, i % 256, dtype=np.uint8)
+                for i in range(tenants)
+            ]
+
+            async def tenant(i: int) -> None:
+                o, h, d = ocms[i], handles[i], datas[i]
+                for _ in range(rounds):
+                    await o.put(h, d)
+                    got = await o.get(h, op_bytes)
+                    if np.asarray(got[:1]).tobytes() != d[:1].tobytes():
+                        raise AssertionError(f"tenant {i} readback bleed")
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(tenant(i) for i in range(tenants)))
+            dt = time.perf_counter() - t0
+            sockets = chmap.fd_count()
+            counters = chmap.counters()
+            await asyncio.gather(*(
+                o.free(h) for o, h in zip(ocms, handles)
+            ))
+            for o in ocms:
+                await o.aclose()
+        finally:
+            chmap.close()
+            await asyncio.sleep(0.05)
+        ops = tenants * rounds * 2
+        return {
+            "ops_per_s": round(ops / dt, 1),
+            "wall_s": round(dt, 3),
+            "sockets": sockets,
+            "threads": 1,
+            "mux": counters,
+        }
+
+    return asyncio.run(run())
+
+
+def dcn_mux_sweep(
+    tenants: int = 64,
+    rounds: int = 100,
+    op_bytes: int = 512,
+    large_nbytes: int = 64 << 20,
+    smoke: bool = False,
+) -> dict:
+    """Paired lockstep-vs-mux sweep:
+
+    - **small ops** — ``tenants`` concurrent tenants each doing
+      ``rounds`` put+get round trips of ``op_bytes``. The lockstep arm
+      is today's client (thread + sockets per tenant); the mux arm is
+      the same workload as coroutines over ONE connection per peer.
+      ``small_op_ratio`` is mux/lockstep ops/s — the ≥2x bar.
+    - **large** — one ``large_nbytes`` put/get per arm: the striped
+      engine (unchanged default path, the <5%-regression baseline) vs
+      the same transfer riding the mux channel.
+
+    ``smoke=True`` bounds everything for a smoke run and ASSERTS the contracts
+    (byte-exactness via the readback checks, mux fd budget ≤ live
+    peers + 1)."""
+    import os
+
+    if smoke:
+        tenants = min(tenants, 8)
+        rounds = min(rounds, 25)
+        large_nbytes = min(large_nbytes, 8 << 20)
+    arena = max(2 * large_nbytes, tenants * op_bytes * 8 + (32 << 20))
+    mk = dict(
+        host_arena_bytes=arena,
+        device_arena_bytes=1 << 20,
+        chunk_bytes=4 << 20,
+        inflight_ops=2,
+        heartbeat_s=5.0,
+        dcn_adaptive=False,
+    )
+    cfg_lock = OcmConfig(**mk)
+    cfg_mux = OcmConfig(**mk, mux=True)
+    data = _bench_data(large_nbytes)
+    out: dict = {
+        "tenants": tenants, "rounds": rounds, "op_bytes": op_bytes,
+        "large_nbytes": large_nbytes,
+    }
+    with _daemon_pair(cfg_lock, native=False) as entries:
+        probe = ControlPlaneClient(entries, 0, config=cfg_lock,
+                                   heartbeat=False)
+        try:
+            deadline = time.time() + 30
+            while time.time() < deadline and probe.status()["nnodes"] < 2:
+                time.sleep(0.1)
+        finally:
+            probe.close()
+        out["lockstep"] = _mux_lockstep_arm(
+            entries, cfg_lock, tenants, rounds, op_bytes
+        )
+        out["mux"] = _mux_async_arm(
+            entries, cfg_mux, tenants, rounds, op_bytes
+        )
+        out["large"] = {
+            "striped": _timed_roundtrip(
+                entries, cfg_lock, large_nbytes, 2, data
+            ),
+            "mux": _timed_roundtrip(
+                entries, cfg_mux, large_nbytes, 2, data
+            ),
+        }
+    out["small_op_ratio"] = round(
+        out["mux"]["ops_per_s"] / max(out["lockstep"]["ops_per_s"], 1e-9),
+        3,
+    )
+    # Measurement honesty: on a 1-core container
+    # the serving daemon's per-op Python cost is a term BOTH arms pay in
+    # full (client and daemon serialize on the same core), which caps
+    # the ratio regardless of how cheap the mux client gets — the
+    # nominal ≥2x bar needs a multicore host, where the lockstep arm
+    # additionally pays its 64-thread context-switch tax. Record what
+    # is measured, with the bound named.
+    out["cores"] = os.cpu_count()
+    if (os.cpu_count() or 1) <= 1:
+        out["note"] = (
+            "1-core container: client+server share the core, so the "
+            "shared serving cost bounds small_op_ratio below the "
+            "multicore figure"
+        )
+    out["large_put_ratio"] = round(
+        out["large"]["mux"]["put_gbps"]
+        / max(out["large"]["striped"]["put_gbps"], 1e-9), 3,
+    )
+    out["large_get_ratio"] = round(
+        out["large"]["mux"]["get_gbps"]
+        / max(out["large"]["striped"]["get_gbps"], 1e-9), 3,
+    )
+    out["verified"] = bool(
+        out["large"]["striped"]["verified"]
+        and out["large"]["mux"]["verified"]
+    )
+    if smoke:
+        # Contracts the smoke gates on: byte-exactness held above
+        # (readback checks + verified large cells) and the fd budget —
+        # the WHOLE mux fleet held at most one socket per live peer
+        # (+1 headroom for a plane listener none of these tenants has).
+        peers = len(entries)
+        if out["mux"]["sockets"] > peers + 1:
+            raise AssertionError(
+                f"mux smoke: fd budget blown — {out['mux']['sockets']} "
+                f"sockets for {peers} peers"
+            )
+        if not out["verified"]:
+            raise AssertionError("mux smoke: large roundtrip mismatch")
+    return out
+
+
+def dcn_hedge_sweep(nbytes: int = 256 << 10, rounds: int = 40,
+                    delay_ms: float = 20.0, hedge_ms: int = 5) -> dict:
+    """Paired hedged-vs-unhedged replicated-read cells ("The Tail at
+    Scale"): a 3-daemon in-process cluster with OCM_REPLICAS=2 and an
+    ARTIFICIALLY SLOW primary chain member (every DATA_GET it serves is
+    stalled ``delay_ms``), read ``rounds`` times by two clients over
+    the same handle — one plain, one with ``OCM_HEDGE_MS=hedge_ms`` so
+    a second read fires at the healthy replica after the hedge delay
+    and the first answer wins. Records per-arm p50/p99 and asserts
+    BOTH arms byte-exact and the hedged p99 strictly below the
+    unhedged one (the loser's extra read is the price; both arms share
+    this host's cores with the serving daemons)."""
+    import dataclasses
+
+    from oncilla_tpu_torch.runtime.protocol import MsgType
+
+    base = OcmConfig(
+        host_arena_bytes=8 << 20,
+        device_arena_bytes=1 << 20,
+        chunk_bytes=256 << 10,
+        dcn_stripes=1,
+        replicas=2,
+        hedge_ms=0,
+    )
+    data = _bench_data(nbytes)
+
+    def percentiles(lat_s: list[float]) -> dict:
+        s = sorted(lat_s)
+        return {
+            "p50_ms": round(s[len(s) // 2] * 1e3, 3),
+            "p99_ms": round(s[min(len(s) - 1,
+                                  int(len(s) * 0.99))] * 1e3, 3),
+        }
+
+    out: dict = {"nbytes": nbytes, "rounds": rounds,
+                 "slow_primary_delay_ms": delay_ms,
+                 "hedge_ms": hedge_ms}
+    with inprocess_cluster(3, config=base) as cl:
+        seed_client = cl.client(0, heartbeat=False)
+        h = seed_client.alloc(nbytes, OcmKind.REMOTE_HOST)
+        try:
+            if not h.replica_ranks:
+                raise AssertionError("k=2 placement assigned no replica")
+            seed_client.put(h, data)
+            # The slow chain member is the PRIMARY: unhedged reads must
+            # eat its stall in full, hedged ones escape to the healthy
+            # replica.
+            slow = cl.daemons[h.rank]
+            slow.serve_delay_types = frozenset({MsgType.DATA_GET})
+            slow.serve_delay_s = delay_ms / 1e3
+            for arm, hedge in (("unhedged", 0), ("hedged", hedge_ms)):
+                cfg = dataclasses.replace(base, hedge_ms=hedge)
+                client = ControlPlaneClient(cl.entries, 0, config=cfg,
+                                            heartbeat=False)
+                try:
+                    lats = []
+                    for _ in range(rounds):
+                        t0 = time.perf_counter()
+                        got = client.get(h, nbytes)
+                        lats.append(time.perf_counter() - t0)
+                        if not np.array_equal(got, data):
+                            raise AssertionError(
+                                f"{arm} replicated get not byte-exact"
+                            )
+                finally:
+                    client.close(detach=True)
+                out[arm] = percentiles(lats)
+            slow.serve_delay_s = 0.0
+            slow.serve_delay_types = frozenset()
+        finally:
+            seed_client.free(h)
+    if out["hedged"]["p99_ms"] >= out["unhedged"]["p99_ms"]:
+        raise AssertionError(
+            f"hedged p99 {out['hedged']['p99_ms']} ms not strictly "
+            f"below unhedged {out['unhedged']['p99_ms']} ms"
+        )
+    out["note"] = (
+        "both arms and the daemons share this host's cores; the delta "
+        "tracks the injected primary stall"
+    )
+    out["verified"] = True
+    return out
+
+
+def smoke(nbytes: int = 4 << 20) -> dict:
+    """Seconds-scale loopback DCN smoke: a tiny
+    striped put/get roundtrip through an in-process 2-daemon cluster,
+    asserting byte-exactness, plus a single-stream roundtrip so BOTH
+    protocol variants (coalesced/striped and lockstep) are exercised."""
+    out = {}
+    data = _bench_data(nbytes)
+    # (stripes, fabric): both tcp protocol variants (coalesced/striped
+    # and lockstep) plus the shm fabric cell — which must actually ride
+    # shm, asserted via the transfer ring's per-fabric tag.
+    for stripes, fab in ((4, "tcp"), (1, "tcp"), (1, "shm")):
+        cfg = OcmConfig(
+            host_arena_bytes=nbytes + (1 << 20),
+            device_arena_bytes=1 << 20,
+            chunk_bytes=256 << 10,
+            inflight_ops=2,
+            dcn_stripes=stripes,
+            dcn_stripe_min_bytes=256 << 10,
+            fabric=fab,
+            fabric_shm_min_bytes=4 << 10,
+        )
+        with inprocess_cluster(2, config=cfg) as cluster:
+            client = cluster.client(0, heartbeat=False)
+            h = client.alloc(nbytes, OcmKind.REMOTE_HOST)
+            try:
+                t0 = time.perf_counter()
+                client.put(h, data)
+                got = client.get(h, nbytes)
+                dt = time.perf_counter() - t0
+                if not np.array_equal(got, data):
+                    raise AssertionError(
+                        f"DCN smoke roundtrip mismatch at "
+                        f"stripes={stripes} fabric={fab}"
+                    )
+                if fab == "shm":
+                    rec = client.tracer.transfers()[-2:]
+                    if [r.get("fabric") for r in rec] != ["shm", "shm"]:
+                        raise AssertionError(
+                            f"smoke shm cell rode {rec}: negotiation "
+                            "failed on the one host where it never should"
+                        )
+            finally:
+                client.free(h)
+            out[f"{fab}_stripes{stripes}_roundtrip_s"] = round(dt, 3)
+    out["verified"] = True
+    return out
+
+
+def native_smoke(nbytes: int = 256 << 20, stripes: int = 4) -> dict:
+    """The Python-client-vs-NATIVE-daemon byte-exactness gate (``--smoke
+    --daemon native``): an UNMODIFIED Python client runs
+    a ``stripes``-stripe coalesced put and striped get of ``nbytes``
+    against a live C++ daemon pair, asserting (a) the daemon granted
+    FLAG_CAP_COALESCE at the data-plane CONNECT probe, (b) the transfer
+    actually rode the coalesced striped path, and (c) the get is
+    byte-exact. Skips CLEANLY — ``{"skipped": <real build error>}`` —
+    when the native daemon cannot be built (no C++ compiler): the skip
+    reason carries the compiler's output, never a bare exit status."""
+    from oncilla_tpu_torch.core.errors import OcmError
+    from oncilla_tpu_torch.runtime import protocol as P
+    from oncilla_tpu_torch.runtime.cluster import build_daemon
+
+    try:
+        build_daemon()
+    except OcmError as e:  # no C++ compiler, or the build failed
+        return {"skipped": f"native build unavailable: {e}"}
+    chunk = 4 << 20
+    cfg = _make_cfg(nbytes, chunk, 2, stripes, False)
+    data = _bench_data(nbytes)
+    with _daemon_pair(cfg, native=True) as entries:
+        client = ControlPlaneClient(entries, 0, config=cfg, heartbeat=False)
+        try:
+            deadline = time.time() + 30
+            while time.time() < deadline and client.status()["nnodes"] < 2:
+                time.sleep(0.1)
+            ctx = Ocm(config=cfg, remote=client, device="cpu")  # host only
+            h = ctx.alloc(nbytes, OcmKind.REMOTE_HOST)
+            assert h.is_remote, "placement demoted; membership race?"
+            t0 = time.perf_counter()
+            ctx.put(h, data)
+            put_s = time.perf_counter() - t0
+            got = np.empty(nbytes, dtype=np.uint8)
+            t0 = time.perf_counter()
+            ctx.get(h, out=got)
+            get_s = time.perf_counter() - t0
+            if not np.array_equal(got, data):
+                raise AssertionError(
+                    "native dcn smoke: striped get not byte-exact"
+                )
+            caps = client._dcn_caps[client._owner_addr(h)]
+            expected = P.FLAG_CAP_COALESCE | (
+                P.FLAG_CAP_TRACE if cfg.trace else 0
+            )
+            if caps != expected:
+                raise AssertionError(
+                    f"native daemon granted caps {caps:#x}, expected "
+                    f"exactly {expected:#x} (COALESCE"
+                    + ("|TRACE" if cfg.trace else "") + ")"
+                )
+            rec = [r for r in client.tracer.transfers()
+                   if r["op"] == "put"][-1]
+            if not rec["coalesced"] or rec["stripes"] != stripes:
+                raise AssertionError(
+                    f"native put rode coalesced={rec['coalesced']} "
+                    f"stripes={rec['stripes']}, expected coalesced "
+                    f"{stripes}-stripe"
+                )
+            ctx.free(h)
+        finally:
+            client.close()
+    return {
+        "nbytes": nbytes,
+        "stripes": stripes,
+        "coalesce_granted": True,
+        "put_gbps": round(nbytes * 8 / put_s / 1e9, 3),
+        "get_gbps": round(nbytes * 8 / get_s / 1e9, 3),
+        "unit": "Gbit/s",
+        "verified": True,
+    }
+
+
+def main(argv=None) -> int:
+    """``python -m oncilla_tpu_torch.benchmarks.dcn --smoke`` (the smoke gate),
+    ``--sweep`` for the full stripe/window sweep, ``--fabrics`` for the
+    fabric × size sweep. ``--daemon`` selects the serving side: the
+    Python reference, the native C++ twin, or ``both`` for the paired
+    Python-vs-native sweep (``--smoke --daemon native`` is the native
+    byte-exactness gate)."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description="DCN data-plane benchmarks")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny in-process striped roundtrip (seconds); "
+                         "with --daemon native, the Python-client-vs-"
+                         "native-daemon byte-exactness gate")
+    ap.add_argument("--sweep", action="store_true",
+                    help="stripe x window sweep against daemon processes")
+    ap.add_argument("--fabrics", action="store_true",
+                    help="tcp vs shm fabric x size sweep (fabric/)")
+    ap.add_argument("--mux", action="store_true",
+                    help="paired lockstep-vs-mux sweep (runtime/mux.py): "
+                         "N concurrent tenants' small ops per-connection "
+                         "vs multiplexed, plus large-transfer cells; "
+                         "with --smoke, the bounded gate asserting "
+                         "byte-exactness and the fd budget")
+    ap.add_argument("--tenants", type=int, default=None,
+                    help="tenant count for the --mux sweep (default 64)")
+    ap.add_argument("--hedge", action="store_true",
+                    help="paired hedged-vs-unhedged replicated-read "
+                         "cells with one artificially slow primary "
+                         "chain member (resilience/timebudget.py)")
+    ap.add_argument("--daemon", choices=["python", "native", "both"],
+                    default=None,
+                    help="which daemon serves: the Python reference, the "
+                         "native C++ twin (default where it builds), or "
+                         "a paired python-vs-native comparison")
+    ap.add_argument("--nbytes", type=int, default=None)
+    ap.add_argument("--python-daemons", action="store_true",
+                    help="deprecated alias for --daemon python")
+    args = ap.parse_args(argv)
+    daemon = args.daemon or ("python" if args.python_daemons else None)
+    if args.hedge:
+        out = dcn_hedge_sweep(
+            nbytes=args.nbytes or (256 << 10),
+            rounds=12 if args.smoke else 40,
+        )
+    elif args.mux:
+        out = dcn_mux_sweep(
+            tenants=args.tenants or (8 if args.smoke else 64),
+            smoke=args.smoke,
+        )
+    elif args.smoke:
+        if daemon == "native":
+            out = native_smoke(args.nbytes or (256 << 20))
+        else:
+            out = smoke(args.nbytes or (4 << 20))
+    elif args.sweep:
+        if daemon == "both":
+            out = dcn_daemon_sweep(args.nbytes or (256 << 20))
+        elif daemon == "python":
+            out = dcn_stripe_sweep(args.nbytes or (256 << 20), native=False)
+        elif daemon == "native":
+            out = dcn_stripe_sweep(args.nbytes or (256 << 20), native=True)
+        else:
+            try:
+                out = dcn_stripe_sweep(args.nbytes or (256 << 20),
+                                       native=True)
+            except Exception:  # noqa: BLE001 — C++ twin unavailable
+                out = dcn_stripe_sweep(args.nbytes or (256 << 20),
+                                       native=False)
+    elif args.fabrics:
+        out = dcn_fabric_sweep(
+            sizes=(args.nbytes,) if args.nbytes else (4 << 20, 64 << 20,
+                                                      256 << 20)
+        )
+    elif daemon == "both":
+        out = dcn_daemon_sweep(args.nbytes or (256 << 20))
+    else:
+        out = dcn_loopback_bench(args.nbytes or (256 << 20),
+                                 native=daemon != "python")
+        # The default invocation carries the fabric cells too: the shm
+        # column is the co-located ceiling the tcp engine is judged
+        # against on a single-host container.
+        out["fabric"] = dcn_fabric_sweep(
+            sizes=(args.nbytes or (256 << 20),)
+        )
+    print(json.dumps(out, indent=2, sort_keys=True))
+    if isinstance(out, dict) and out.get("skipped"):
+        print(f"dcn: native cell SKIPPED: {out['skipped']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,8 +6,10 @@
   rate, target 0.80), ``pallas_gbps`` becomes ``copy_loop_gbps``.
 - ``benchmarks/bench.run`` and ``chip_smoke.phase_bench`` (phase 7)
   rehearsed at tiny sizes with timing off, the mfu stages on the tiny
-  Llama; a wrong plain loop zeroes its number, and a kernel that disagrees
-  with its plain version fails phase 7.
+  Llama, the wire legs at 8 MiB, GUPS on a 1024-word table and the serving
+  harness's ``--bench`` in a subprocess on the CPU; a wrong plain loop
+  zeroes its number, and a kernel that disagrees with its plain version
+  fails phase 7.
 - Without CUDA the bench refuses.
 """
 
@@ -111,6 +113,8 @@ BENCH_TINY = {
               "ranges": ((1 * MiB, 2 * MiB, 1, 0.65, 1 * MiB, True),
                          (1 * KiB, 64 * KiB, 2, 0.35, None, False))},
     "kv_kw": {"tokens_n": 8, "page_tokens": 4, "config": "tiny"},
+    "dcn_kw": {"nbytes": 8 * MiB},
+    "gups_kw": {"words": 1 << 10, "batch": 256, "steps": 4},
     "mfu_kw": {
         "forward": {"cfg": LlamaConfig.tiny(), "batch": 2, "seq": 16, "steps": 1},
         "train": {"cfg": LlamaConfig.tiny(), "seq": 16, "variants": [
@@ -128,12 +132,31 @@ def test_gb_ranges_are_bench_py_ranges():
     assert [r[3] for r in bench.GB_RANGES] == [0.65, 0.35]
 
 
-def test_bench_rehearsal_on_the_cpu():
-    out = bench.run("cpu", timing=False, **BENCH_TINY)
+def test_bench_rehearsal_on_the_cpu(monkeypatch):
+    # One torch thread here and in the harness's subprocess: the tiny
+    # models run faster on one, and the test workers share the host.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    # The tail re-runs the early wire leg's code: one real run banks both
+    # (bank_dcn's rules are test_torch_bench_orchestration's), and the
+    # workers are spared four more Python daemon pairs.
+    real_dcn, wire = bench.bench_dcn, []
+
+    def wire_once(errors, **kw):
+        if not wire:
+            wire.append(real_dcn(errors, **kw))
+        return dict(wire[0])
+
+    monkeypatch.setattr(bench, "bench_dcn", wire_once)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = bench.run("cpu", timing=False, **BENCH_TINY)
+    finally:
+        torch.set_num_threads(threads)
     d = out["detail"]
     assert out["ok"] is True and list(out)[-1] == "ok"
     assert out["value"] is None and out["vs_hbm"] is None  # no CPU rate
-    assert d["errors"] == dict.fromkeys(("dcn", "gups", "serving"), "not ported")
+    assert d["errors"] == {}  # every stage ran, bench.py's last three too
     # The mfu stages ran at the tiny size; no CPU number stands as a rate.
     assert d["mfu"] is None and d["mfu_forward_tflops"] is None
     assert d["mfu_train"] is None and d["mfu_train_tflops"] is None
@@ -147,9 +170,22 @@ def test_bench_rehearsal_on_the_cpu():
     assert set(d["kv_decode_tok_s"]) == {"plain", "device", "host",
                                          "device_fused", "fused"}
     assert d["onesided_verified"] and d["dma_rows_verified"]
-    assert set(d["stage_s"]) == {"copy_legs", "ceiling", "gb_sweep", "mfu_forward",
-                                 "mfu_train", "kv_decode"}
-    assert [v for _, v, _ in check.grade(out)] == ["NO DATA"] * 6
+    assert list(d["stage_s"]) == ["copy_legs", "ceiling", "gb_sweep", "dcn_early",
+                                  "mfu_forward", "mfu_train", "gups", "serving",
+                                  "kv_decode", "dcn_tail"]
+    # The wire legs: the stripe sweep on the native daemons, the fabric and
+    # daemon sweeps beside it, every cell read back equal, in Gbit/s.
+    dcn = d["dcn"]
+    assert dcn["verified"] and dcn["native_daemons"] and dcn["unit"] == "Gbit/s"
+    assert dcn["fabric"]["verified"] and dcn["native"]["verified"]
+    assert d["gups"] is None  # no CPU rate
+    assert d["gups_method"].startswith("handle:")
+    assert d["gups_table_sum"] == d["gups_updates"] == 4 * 256
+    serving = d["serving"]
+    assert serving["chaos"]["byte_exact"] and serving["warmboot"]["byte_exact"]
+    assert serving["drained_ranks"] == [0, 1, 2]
+    # Only the wire row grades on the CPU: it holds no rate of the card.
+    assert [v for _, v, _ in check.grade(out)] == ["NO DATA"] * 5 + ["PASS"]
 
 
 def test_bench_wrong_plain_loop_zeroes_its_number(monkeypatch):
@@ -162,6 +198,9 @@ def test_bench_wrong_plain_loop_zeroes_its_number(monkeypatch):
         return buf
 
     monkeypatch.setattr(copy_loops, "copy_loop_plain", wrong)
+    # The wire and serving legs' own work is the rehearsal's.
+    monkeypatch.setattr(bench, "bench_dcn", lambda errors, **kw: {"verified": True})
+    monkeypatch.setattr(bench, "bench_serving", lambda errors, **kw: {})
     out = bench.run("cpu", timing=False, **BENCH_TINY)
     d = out["detail"]
     assert out["ok"] is False and list(out)[-1] == "ok"
@@ -171,21 +210,29 @@ def test_bench_wrong_plain_loop_zeroes_its_number(monkeypatch):
 
 
 @pytest.mark.parametrize("deadline_s,skipped", [
-    # each stage's need: bench.py's 150/60/240/240/200 s
-    (100.0, ("ceiling", "mfu_forward", "mfu_train", "kv_decode")),
-    (50.0, ("ceiling", "gb_sweep", "mfu_forward", "mfu_train", "kv_decode")),
+    # each stage's need: bench.py's 150/60/45/240/240/120/150/200/60 s
+    (100.0, ("ceiling", "mfu_forward", "mfu_train", "gups", "serving", "kv_decode")),
+    (50.0, ("ceiling", "gb_sweep", "mfu_forward", "mfu_train", "gups", "serving",
+            "kv_decode", "dcn_tail")),
 ])
-def test_bench_stages_past_the_budget_are_skipped(deadline_s, skipped):
+def test_bench_stages_past_the_budget_are_skipped(deadline_s, skipped, monkeypatch):
+    # The wire legs' own work is the rehearsal's; here they bank at once.
+    monkeypatch.setattr(bench, "bench_dcn", lambda errors, **kw: {"verified": True})
     out = bench.run("cpu", deadline_s=deadline_s, timing=False, **BENCH_TINY)
     d = out["detail"]
     assert out["ok"] is False
     for stage, key in (("ceiling", "ceiling"), ("gb_sweep", "gb_sweep"),
                        ("mfu_forward", "mfu"), ("mfu_train", "mfu_train"),
+                       ("gups", "gups"), ("serving", "serving"),
                        ("kv_decode", "kv_decode_tok_s")):
         if stage in skipped:
             assert d["errors"][stage].startswith("skipped:") and key not in d
         else:
             assert stage not in d["errors"] and key in d
+    # The early wire echo banks within either budget; the tail re-runs only
+    # where 60 s are left.
+    assert d["dcn"] == {"verified": True} and "dcn_early" not in d["errors"]
+    assert ("dcn_tail" in d["errors"]) == ("dcn_tail" in skipped)
     assert d["copy_loop_streams"] == 2  # the copy legs always run
 
 
@@ -196,7 +243,14 @@ def _phase(**kw):
         timing=False, check_launches=False, **kw)
 
 
-def test_chip_smoke_bench_phase_rehearsal_on_the_cpu():
+def test_chip_smoke_bench_phase_rehearsal_on_the_cpu(monkeypatch):
+    # The wire and serving legs bank stand-ins here: their own work is
+    # test_bench_rehearsal_on_the_cpu's; the phase's checks read these.
+    monkeypatch.setattr(bench, "bench_dcn", lambda errors, **kw: {
+        "verified": True, "native_daemons": True})
+    monkeypatch.setattr(bench, "bench_serving", lambda errors, **kw: {
+        "chaos": {"byte_exact": True}, "warmboot": {"byte_exact": True},
+        "launches": {"write_rows": 0, "read_rows": 0}})
     r = _phase()
     assert set(r["rows"]) == {"read_stream", "copy_stream_loop", "vmem_roundtrip"}
     for name, rows in r["rows"].items():
@@ -204,6 +258,8 @@ def test_chip_smoke_bench_phase_rehearsal_on_the_cpu():
     assert [c["streams"] for c in r["rows"]["copy_stream_loop"][1:]] == [1, 2, 4, 8]
     assert [c["iters"] for c in r["rows"]["vmem_roundtrip"][1:]] == [2, 3]
     assert r["bench"]["ok"] and len(r["grade"]) == 6
+    assert r["grade"][5][1] == "PASS"  # the wire legs, verified
+    assert set(r["launches_serving"]) >= {"write_rows", "read_rows"}
 
 
 def test_chip_smoke_bench_phase_catches_a_wrong_kernel(monkeypatch):
