@@ -193,6 +193,31 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    leg, the chaos leg and the warm boot's TTFT held as written); (c) GUPS
    over a handle's extent at a 16 MiB table (inside the L2) and a 1 GiB one,
    updates conserved.
+8f. observed — the serving path observed, right after 8e while the weights
+   are on the card: 8e (a)'s two cells again, in its order, on a fresh
+   cluster of its settings, with the journal and the flight recorder on, the
+   SLO watcher (``Ocm.start_slo``, a scrape every 0.5 s) on the app's
+   control plane and the shared cell inside ``utils/debug.capture_trace``
+   (``torch.profiler``, CPU and CUDA); the shared cell moves no byte over
+   the wire, the noshare cell's COLD pages do: (a) each cell's tokens 8e's
+   bit for bit or by the margin rule, t0's t1's, K1/K2 launches the HOT
+   puts/gets; (b) the SLO block has 3
+   evaluations, no fetch error, and the serving objectives saw traffic
+   (every verdict printed, none held green); (c) ``Ocm.export_trace``: 3
+   tracks, a cross-track flow, spans of the page path; (d) ``python -m
+   oncilla_tpu_torch.obs critpath <flight-recorder dir>
+   --require-cross-rank`` exits 0; (e) the profiler trace holds one
+   ``bulk_copy_kernel`` event per K1/K2/K3 launch of the shared cell, each
+   launched inside an ``ocm:put``/``ocm:get`` range; (f) the obs CLI on the
+   live cluster through a nodefile:
+   the table with the engine's serving row, ``--prom 0`` with
+   ``ocm_serving_ttft_seconds``, ``slo --json`` exiting as its verdict
+   says; (g) observed against unobserved tokens/s, and K1's host issue time
+   at 4 KiB with recording off against phase 3's; (h) the operator's CLIs,
+   each CLI's ``main`` in turn in one process of their own, reniced ahead
+   of other work, each returning 0 on its OK line: ``resilience --smoke``,
+   ``--leader-smoke`` and ``--deadline-smoke``, ``obs --smoke``, ``obs slo
+   --selftest``, ``elastic --smoke``, ``qos --smoke``, ``fabric --smoke``.
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -230,6 +255,7 @@ card's ``nvidia-smi`` line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -3351,6 +3377,10 @@ def phase_harness(device, cfg, params, *, seed: int = HARNESS_SEED,
             if got != want or not all(got):
                 raise AssertionError(f"harness {name}: K1/K2 launches {got} != "
                                      f"HOT puts/gets {want}")
+    # Phase 8f decodes both cells again, observed: their references.
+    report["observe_ref"] = {"host_arena_bytes": host_arena, "cells": {
+        name: {k: c[k] for k in ("outputs", "rows", "tok_s", "launches", "hot_io")}
+        for name, c in report["cells"].items()}}
     for c in report["cells"].values():
         del c["rows"], c["outputs"]
     del made
@@ -3395,6 +3425,410 @@ def phase_harness(device, cfg, params, *, seed: int = HARNESS_SEED,
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[harness] checks passed; launches {launches}; phase "
         f"{report['seconds']:.3f} s")
+    return report
+
+
+# -- phase 8f ---------------------------------------------------------------
+
+# The operator's CLIs as their users run them: each CLI's ``main`` must
+# return 0 with its OK line. They hold host memory only (in-process daemons,
+# REMOTE_HOST) and run one after another in one process of their own (one
+# torch import for all), once the cluster is gone, reniced ahead of other
+# work where the host allows it: their chaos legs time 50 ms failure
+# detectors and soak deadlines that a loaded host can starve into false
+# verdicts (ROADMAP Queue C; on the card, four or five smokes at once failed
+# the QoS soak's back-pressure and the leader smoke's audit). The resilience
+# smokes go first, before any other smoke's threads.
+OBSERVE_CLIS = (("resilience", "--smoke"), ("resilience", "--leader-smoke"),
+                ("resilience", "--deadline-smoke"), ("obs", "--smoke"),
+                ("obs", "slo", "--selftest"), ("elastic", "--smoke"),
+                ("qos", "--smoke"), ("fabric", "--smoke"))
+OBSERVE_SLO_INTERVAL_S = 0.5
+_BULK_KERNEL = "bulk_copy_kernel"  # K1's, K2's and K3's one kernel name
+
+
+def _start(argv, nice: int = 0) -> tuple:
+    """``python <argv...>`` started (each process imports torch: seconds
+    apiece), its priority raised to ``nice`` right after where the host
+    allows it (threads it starts later inherit it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen(
+        [sys.executable, *argv], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    if nice:
+        try:
+            os.setpriority(os.PRIO_PROCESS, p.pid, nice)
+        except OSError:
+            pass  # no privilege: the host schedules it as it is
+    return time.perf_counter(), p
+
+
+def _operator_clis() -> int:
+    """Phase 8f (h)'s process: each CLI named in ``sys.argv[1]`` (JSON, as
+    ``OBSERVE_CLIS``) through its ``main``, in turn, its output captured;
+    one JSON line each on stdout. Stops at the first that fails. Each
+    starts on the journal a fresh process would hold: empty, switched as
+    the environment says."""
+    import importlib
+    import io
+
+    from oncilla_tpu_torch.obs import journal
+
+    at_start = journal.enabled()
+    for cmd in json.loads(sys.argv[1]):
+        journal.clear()
+        journal.set_enabled(at_start)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = importlib.import_module(
+                    f"oncilla_tpu_torch.{cmd[0]}.__main__").main(list(cmd[1:]))
+        except BaseException:  # noqa: BLE001 — reported to the parent, which fails
+            err.write(traceback.format_exc())
+            rc = -1
+        print(json.dumps({"cmd": cmd, "rc": rc, "seconds": time.perf_counter() - t0,
+                          "out": out.getvalue()[-3000:],
+                          "err": err.getvalue()[-3000:]}), flush=True)
+        if rc != 0:
+            return 1
+    return 0
+
+
+def _finish(started, timeout: float = 300.0) -> list:
+    """Each of ``started``'s (returncode, stdout, stderr, seconds), in
+    order."""
+    out = []
+    for t0, p in started:
+        try:
+            so, se = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        out.append((p.returncode, so, se, time.perf_counter() - t0))
+    return out
+
+
+def _profiled_kernels(trace_dir: str) -> dict:
+    """The ``capture_trace`` output: its ``bulk_copy_kernel`` events, and how
+    many of them were launched inside each ``ocm:`` range, the innermost
+    around the launch on the launching thread (a kernel event names its
+    launch by ``correlation``)."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.trace.json"))
+    with open(path, encoding="utf-8") as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    ranges = collections.defaultdict(list)
+    launch = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if name.startswith("ocm:"):
+            ranges[(e.get("pid"), e.get("tid"))].append(
+                (e["ts"], e["ts"] + e.get("dur", 0), name))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in e.get("args", {}):
+            launch[e["args"]["correlation"]] = e
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and _BULK_KERNEL in str(e.get("name", ""))]
+    inside = collections.Counter()
+    for k in kernels:
+        ln = launch.get(k.get("args", {}).get("correlation"))
+        if ln is None:
+            continue
+        around = [(t0, name) for t0, t1, name in ranges[(ln.get("pid"), ln.get("tid"))]
+                  if t0 <= ln["ts"] <= t1]
+        if around:
+            inside[max(around)[1]] += 1  # the innermost range
+    return {"file": os.path.basename(path), "bulk_kernels": len(kernels),
+            "in_ocm_ranges": dict(inside),
+            "ocm_ranges": dict(collections.Counter(
+                n for rs in ranges.values() for _, _, n in rs))}
+
+
+def phase_observed(device, cfg, params, *, ref: dict, seed: int = HARNESS_SEED,
+                   fleet=HARNESS_FLEET, new_tokens: int = HARNESS_NEW,
+                   page_tokens: int = HARNESS_PAGE_TOKENS, tiers=HARNESS_TIERS,
+                   host_us_ref: float | None = None, clis=OBSERVE_CLIS,
+                   slo_interval_s: float = OBSERVE_SLO_INTERVAL_S,
+                   check_launches: bool = True) -> dict:
+    """Phase 8f, the serving path observed: 8e (a)'s two cells again, in its
+    order (its settings, ``_run_cell``, a fresh ``inprocess_cluster(3)``
+    with the harness's cluster settings), with the journal and the flight
+    recorder on (a temporary directory), the SLO watcher on the app's
+    control plane (``Ocm.start_slo``, a scrape each ``slo_interval_s``) and
+    the shared cell, the one 8e measured, inside ``capture_trace``. The
+    noshare cell is the one whose COLD pages cross the wire (the shared
+    cell's fit HOT and WARM: no byte reaches a daemon), so it is what the
+    cross-rank checks read. (a) Each cell's
+    tokens 8e's bit for bit or by the margin rule, t0's t1's, K1/K2
+    launches its HOT puts/gets. (b) The SLO block: 3 evaluations at least,
+    no fetch error, the serving objectives saw traffic; every verdict
+    printed, not held green. (c) ``export_trace``: 3 tracks, a cross-track
+    flow, spans of the page path. (d) ``obs critpath <flight-recorder dir>
+    --require-cross-rank`` as a process exits 0. (e) The profiler trace:
+    one ``bulk_copy_kernel`` event per K1/K2/K3 launch of the shared cell,
+    each launched inside an ``ocm:put``/``ocm:get`` range. (f) The CLI on
+    the live cluster
+    through a nodefile, the shared cell's engine still published: the table
+    with its serving row, ``--prom 0`` with ``ocm_serving_ttft_seconds``,
+    ``slo --json`` parsed, its exit code its verdict's. (g) Observed against
+    8e's unobserved tokens/s, and K1's host issue time at 4 KiB with
+    recording off against phase 3's. (h) Each of ``clis`` through its
+    ``main``, in turn, in one reniced process beside (d)'s."""
+    import tempfile
+
+    from oncilla_tpu_torch.benchmarks import kernel_times as kt
+    from oncilla_tpu_torch.obs import flightrec, journal
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.serving import __main__ as harness
+    from oncilla_tpu_torch.serving import engine as engine_mod
+    from oncilla_tpu_torch.utils.debug import capture_trace
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    hot, warm = tiers
+    prompts = harness._prompts(seed, vocab=cfg.vocab, **fleet)
+    report = {"slo_interval_s": slo_interval_s, "cells": {}, "seconds_by": {}}
+    Recording = _recording_engine()
+    made, live = [], {}
+
+    def live_checks(eng, cl, ctx, tmp):
+        """(b) and (f), while the engine is still published to the daemons."""
+        deadline = time.monotonic() + 15.0
+        while ctx.status()["slo"].get("evaluations", 0) < 3:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"observed: the SLO watcher did not tick "
+                                     f"3 times: {ctx.status()['slo']}")
+            time.sleep(0.05)
+        live["slo"] = ctx.status()["slo"]
+        nodefile = os.path.join(tmp, "nodefile")
+        with open(nodefile, "w") as fh:
+            fh.writelines(f"{e.rank} {e.host} {e.port}\n" for e in cl.entries)
+        obs = ("-m", "oncilla_tpu_torch.obs")
+        t0 = time.perf_counter()
+        started = [_start((*obs, *a)) for a in (
+            ("--nodefile", nodefile), ("--nodefile", nodefile, "--prom", "0"),
+            ("slo", "--nodefile", nodefile, "--json", "--interval", "0.2"))]
+        table, prom, slo = _finish(started)
+        report["seconds_by"]["live_cli"] = time.perf_counter() - t0
+        live["cli"] = {"table": table, "prom": prom, "slo": slo,
+                       "engine": eng.stats.engine}
+
+    class ObservedEngine(Recording):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, graphs="engine", timed=False, **kw)
+            made.append(self)
+
+        def metrics_meta(self):
+            # The cell has finished and timed itself; the engine is still
+            # published, so the operator's view of it is taken now.
+            if self.stats.engine.endswith("-shared"):
+                live_checks(self, *live_args)
+            return super().metrics_meta()
+
+    got = {}
+    real = engine_mod.ServingEngine
+    engine_mod.ServingEngine = ObservedEngine
+    try:
+        with tempfile.TemporaryDirectory(prefix="ocm-observed-") as tmp:
+            fr_dir = os.path.join(tmp, "flightrec")
+            trace_dir = os.path.join(tmp, "trace")
+            with flightrec.recording(fr_dir), inprocess_cluster(
+                    3, config=harness._cluster_cfg(
+                        host_arena_bytes=ref["host_arena_bytes"])) as cl:
+                # The operator's handle on the cluster: host memory only,
+                # its device arm a CPU buffer nothing here touches.
+                ctx = cl.context(0, device="cpu", heartbeat=False)
+                live_args = (cl, ctx, tmp)
+                try:
+                    runner = ctx.start_slo(interval_s=slo_interval_s)
+                    if runner is None:
+                        raise AssertionError("observed: OCM_SLO disabled the watcher")
+                    runner.tick()  # the baseline: every counter before the cells
+                    for name, share in (("noshare", False), ("shared", True)):
+                        if on_card:
+                            torch.cuda.synchronize(device)
+                        # The main path: counts from 0 just before the cell.
+                        dma.reset_launches()
+                        t0 = time.perf_counter()
+                        with (capture_trace(trace_dir) if share
+                              else contextlib.nullcontext()):
+                            cell = harness._run_cell(
+                                cl, cfg, params, share=share, prompts=prompts,
+                                new_tokens=new_tokens, page_tokens=page_tokens,
+                                hot=hot, warm=warm, prefetch_workers=0,
+                                name=f"harness-observed-{name}")
+                            if on_card:
+                                torch.cuda.synchronize(device)
+                        # The cell with its setup, capture and close, but not
+                        # the live CLIs its engine ran before closing.
+                        report["seconds_by"][f"cell_{name}"] = (
+                            time.perf_counter() - t0
+                            - report["seconds_by"].get("live_cli", 0.0) * share)
+                        cell["launches"] = dma.launches()
+                        cell["hot_io"] = dict(made[-1].store.io["hbm"])
+                        cell["rows"] = made[-1].rows
+                        report["cells"][name] = cell
+                        for k, v in cell["launches"].items():
+                            got[k] = got.get(k, 0) + v
+                    path = os.path.join(tmp, "cluster.trace.json")
+                    summary = ctx.export_trace(path)
+                    with open(path, encoding="utf-8") as fh:
+                        exported = json.load(fh)
+                finally:
+                    ctx.stop_slo()
+                    ctx.tini()
+                report["drained_ranks"] = harness._assert_drained(cl)
+            report["journal_on_after"] = journal.enabled()
+            t0 = time.perf_counter()
+            report["profiler"] = _profiled_kernels(trace_dir)
+            report["seconds_by"]["profiler_read"] = time.perf_counter() - t0
+            # (d) and (h), side by side.
+            t0 = time.perf_counter()
+            procs = _finish([
+                _start(("-m", "oncilla_tpu_torch.obs", "critpath", fr_dir,
+                        "--require-cross-rank")),
+                _start(("-c", "import chip_smoke, sys; "
+                              "sys.exit(chip_smoke._operator_clis())",
+                        json.dumps(clis)), nice=-10)])
+            report["seconds_by"]["clis"] = time.perf_counter() - t0
+    finally:
+        engine_mod.ServingEngine = real
+    report["launches"] = got
+
+    # (a) Observing changes no result.
+    for name, cell in report["cells"].items():
+        want = ref["cells"][name]
+        outputs = cell.pop("outputs")
+        rows = cell.pop("rows")
+        if outputs["t0"] != outputs["t1"]:
+            raise AssertionError(f"observed {name}: identical prompts decoded "
+                                 f"apart: {outputs['t0']} vs {outputs['t1']}")
+        cell["vs_unobserved"] = (
+            "bits" if outputs == want["outputs"] else _margin_check(want["rows"], rows))
+        if cell["vs_unobserved"] != "bits":
+            _hold_margin(f"observed {name} against 8e's", cell["vs_unobserved"])
+        pair = (cell["launches"]["write_rows"], cell["launches"]["read_rows"])
+        io = (cell["hot_io"]["put"], cell["hot_io"]["get"])
+        if check_launches and (pair != io or not all(pair)):
+            raise AssertionError(f"observed {name}: K1/K2 launches {pair} != HOT "
+                                 f"puts/gets {io}")
+        log(f"[observed] (a) {name}: {cell['decode_tokens']} tokens in "
+            f"{cell['wall_s']} s, {cell['tok_s']} tokens/s (8e {want['tok_s']}), "
+            f"remote bytes {cell['remote_bytes']}, K1/K2 {pair[0]}/{pair[1]} (8e "
+            f"{want['launches']['write_rows']}/{want['launches']['read_rows']}), "
+            f"HOT io {io}; tokens against 8e's: "
+            f"{json.dumps(cell['vs_unobserved'])}")
+    del made
+
+    # (b) The SLO watcher's verdicts, printed, not held green.
+    slo = live["slo"]
+    verdicts = {v["objective"]: v for v in slo.get("objectives", [])}
+    report["slo"] = {
+        "ok": slo.get("ok"), "evaluations": slo["evaluations"],
+        "history": slo["history"],
+        "verdicts": {n: {k: v[k] for k in ("active", "ok", "burn_fast", "burn_slow")}
+                     for n, v in verdicts.items()}}
+    for name, v in report["slo"]["verdicts"].items():
+        log(f"[observed] (b) slo {name}: {json.dumps(v)}")
+    if slo["history"]["errors"] != 0 or slo["history"]["scrapes"] < 3:
+        raise AssertionError(f"observed: SLO scrapes {slo['history']}")
+    idle = [n for n in ("serving_ttft", "serving_tokens")
+            if not verdicts.get(n, {}).get("active")]
+    if idle:
+        raise AssertionError(f"observed: the serving objectives {idle} saw no "
+                             f"traffic: {report['slo']}")
+
+    # (c) The exported cluster trace.
+    spans = {e["name"] for e in exported["traceEvents"] if e.get("ph") == "X"}
+    report["export"] = {**summary, "span_names": sorted(spans)}
+    log(f"[observed] (c) export: {json.dumps(report['export'])}")
+    page_path = ({"put", "get"} <= spans or {"dcn_put", "dcn_get"} <= spans)
+    if summary["tracks"] < 3 or summary["flows"] < 1 or not page_path \
+            or "serve_batch_step" not in spans:
+        raise AssertionError(f"observed: the export lacks tracks, flows or the "
+                             f"page path's spans: {report['export']}")
+
+    # (d) The critical path over the flight recorder's segments.
+    rc, so, se, _ = procs[0]
+    report["critpath"] = {"rc": rc, "head": so.strip().splitlines()[:14]}
+    log("[observed] (d) critpath --require-cross-rank:\n"
+        + "\n".join(report["critpath"]["head"]))
+    if rc != 0:
+        raise AssertionError(f"observed: obs critpath exited {rc}: "
+                             f"{so[-3000:]}{se[-3000:]}")
+
+    # (e) The profiler's timeline: the shared cell's kernels, inside the
+    # ops' ranges.
+    prof = report["profiler"]
+    log(f"[observed] (e) capture_trace: {json.dumps(prof)}")
+    sl = report["cells"]["shared"]["launches"]
+    launched = sl["write_rows"] + sl["read_rows"] + sl["local_copy"]
+    in_ops = sum(prof["in_ocm_ranges"].get(n, 0) for n in ("ocm:put", "ocm:get"))
+    if not any(n in prof["ocm_ranges"] for n in ("ocm:put", "ocm:get")):
+        raise AssertionError(f"observed: no ocm:put/ocm:get range on the "
+                             f"timeline: {prof}")
+    if on_card and not prof["bulk_kernels"] == in_ops == launched:
+        raise AssertionError(f"observed: {prof['bulk_kernels']} {_BULK_KERNEL} "
+                             f"events ({prof['in_ocm_ranges']} by innermost "
+                             f"ocm: range) for {launched} K1/K2/K3 launches")
+
+    # (f) The CLI against the live cluster.
+    cli = live["cli"]
+    (table_rc, table, table_err, _), (prom_rc, prom, prom_err, _), \
+        (slo_rc, slo_out, _, _) = cli["table"], cli["prom"], cli["slo"]
+    if table_rc != 0 or cli["engine"] not in table:
+        raise AssertionError(f"observed: obs table exited {table_rc} without the "
+                             f"engine's serving row: {table[-3000:]}{table_err[-2000:]}")
+    if prom_rc != 0 or "ocm_serving_ttft_seconds" not in prom:
+        raise AssertionError(f"observed: obs --prom 0 exited {prom_rc} without "
+                             f"ocm_serving_ttft_seconds: {prom_err[-2000:]}")
+    slo_doc = json.loads(slo_out)
+    if slo_rc != (0 if slo_doc["ok"] else 1):
+        raise AssertionError(f"observed: obs slo exited {slo_rc} with "
+                             f"ok={slo_doc['ok']}")
+    report["cli"] = {"table_rc": table_rc, "prom_rc": prom_rc, "slo_rc": slo_rc,
+                     "slo_ok": slo_doc["ok"]}
+    log("[observed] (f) obs --nodefile:\n" + table.rstrip())
+    log(f"[observed] (f) {json.dumps(report['cli'])}")
+
+    # (g) What observing costs.
+    report["tok_s"] = {n: c["tok_s"] for n, c in report["cells"].items()}
+    report["tok_s_unobserved"] = {n: c["tok_s"] for n, c in ref["cells"].items()}
+    if on_card:
+        arena = torch.zeros(64 * MiB, dtype=torch.uint8, device=device)
+        small = torch.randint(0, 256, (BLOCK,), dtype=torch.uint8, device=device)
+        report["host_us_k1"] = kt.host_us(lambda: dma.write_rows(arena, small, 12 * KiB))
+        report["host_us_k1_phase3"] = host_us_ref
+        del arena, small
+        torch.cuda.empty_cache()
+    log(f"[observed] (g) tokens/s observed {report['tok_s']} against unobserved "
+        f"{report['tok_s_unobserved']}; K1 host_us at 4 KiB, recording off, "
+        f"{report.get('host_us_k1')} against phase 3's {host_us_ref}")
+    if report["journal_on_after"]:
+        raise AssertionError("observed: the journal stayed on after the phase")
+
+    # (h) The operator's CLIs, each ending on its OK line.
+    rc, so, se, sec = procs[1]
+    ran = [json.loads(line) for line in so.splitlines() if line.startswith("{")]
+    report["clis"] = {"rc": rc, "seconds": round(sec, 3)}
+    for r in ran:
+        name = " ".join(r["cmd"])
+        last = (r["out"].strip().splitlines() or [""])[-1]
+        report["clis"][name] = {"rc": r["rc"], "seconds": round(r["seconds"], 3),
+                                "last": last[:160]}
+        log(f"[observed] (h) {name}: {json.dumps(report['clis'][name])}")
+        if r["rc"] != 0 or " OK" not in last:
+            raise AssertionError(f"python -m oncilla_tpu_torch.{name} returned "
+                                 f"{r['rc']}: {r['out']}{r['err']}")
+    if rc != 0 or [r["cmd"] for r in ran] != [list(c) for c in clis]:
+        raise AssertionError(f"observed: the CLIs' process exited {rc} after "
+                             f"{len(ran)} of {len(clis)}: {so[-3000:]}{se[-3000:]}")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[observed] checks passed; phase {report['seconds']:.3f} s; by part "
+        f"{json.dumps(report['seconds_by'])}")
     return report
 
 
@@ -3860,6 +4294,9 @@ def main(argv=None) -> int:
         "runs": engine["runs"], "wire": wire["engine"]})
     warmboot = phase_warmboot(device, cfg, params, page_tokens=ENGINE_PAGE_TOKENS)
     harness = phase_harness(device, cfg, params)
+    observed = phase_observed(
+        device, cfg, params, ref=harness.pop("observe_ref"),
+        host_us_ref=next(r["host_us"] for r in kern["write_rows"] if "host_us" in r))
     del params
     torch.cuda.empty_cache()
 
@@ -3890,6 +4327,7 @@ def main(argv=None) -> int:
                  # bench cells in phase 7's serving stage).
                  "harness": {k: v + bench["launches_serving"].get(k, 0)
                              for k, v in harness["launches"].items()},
+                 "observed": observed["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -3955,6 +4393,10 @@ def main(argv=None) -> int:
         "harness": {k: harness[k] for k in (
             "page_bytes", "pages", "cells", "remote_bytes_shared_noshare",
             "shared_vs_noshare", "drained_ranks", "smoke", "gups", "seconds")},
+        "observed": {k: observed.get(k) for k in (
+            "cells", "launches", "slo", "export", "critpath", "profiler", "cli",
+            "tok_s", "tok_s_unobserved", "host_us_k1", "host_us_k1_phase3",
+            "clis", "drained_ranks", "seconds", "seconds_by")},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",

@@ -396,6 +396,41 @@ class Ocm:
         over the ordinary in-band control path."""
         return self._remote_or_raise("fetch_prom").fetch_prom(rank)
 
+    def start_slo(self, interval_s: float | None = None):
+        """Arm the in-process SLO watcher (obs/slo.py) over this
+        context's control plane: background STATUS_PROM scrapes feed the
+        metrics history, the burn-rate engine evaluates the ``OCM_SLO``
+        objectives, and verdicts surface in ``status()["slo"]``.
+        Returns the runner, or None when ``OCM_SLO`` disables it."""
+        return self._remote_or_raise("start_slo").start_slo(interval_s)
+
+    def stop_slo(self) -> None:
+        backend = self._remote
+        if backend is not None:
+            backend.stop_slo()
+
+    def export_trace(self, path: str, cluster: bool = True) -> dict:
+        """Write a Perfetto/Chrome-trace JSON merging this process's
+        event journal (``OCM_EVENTS=1``) with — when ``cluster`` and a
+        control plane is attached — every reachable daemon's journal
+        (STATUS_EVENTS), trace_ids stitched as flows across pid tracks.
+        Returns the exporter summary ({events, spans, tracks, flows})."""
+        from oncilla_tpu_torch.obs import export, journal
+
+        streams = [journal.events()]
+        backend = self._remote
+        fetch = getattr(backend, "fetch_events", None)
+        if cluster and fetch is not None:
+            nnodes = len(getattr(backend, "entries", []) or [])
+            for rank in range(nnodes):
+                try:
+                    streams.append(fetch(rank))
+                except Exception as e:  # noqa: BLE001 — merge survivors;
+                    # a down daemon must not void the local journal
+                    printd("export_trace: rank %d journal unavailable: %s",
+                           rank, e)
+        return export.write_chrome_trace(export.merge(*streams), path)
+
     @staticmethod
     def is_remote(handle: OcmAlloc) -> bool:
         return handle.is_remote

@@ -1,0 +1,414 @@
+"""The port's copy of ``oncilla_tpu/elastic/__main__.py``, line for line, with
+the imports renamed to the port's modules. Its scenarios run on
+``inprocess_cluster`` (the JAX package's in-process ``local_cluster``). A
+get's bytes (a CPU tensor in the port) are compared through ``np.asarray``.
+
+``python -m oncilla_tpu_torch.elastic`` — elastic-membership chaos smoke.
+
+``--smoke`` proves the JOIN/LEAVE/migration protocol under the
+deterministic chaos harness, hardware-free, in-process — each scenario
+runs TWICE and the fired fault interleaving plus the converged outcome
+must compare equal across runs:
+
+1. **kill owner mid-migration** — a chaos-scheduled ``migrate`` fault
+   starts a live migration at a fixed logical op index and a ``kill``
+   lands on the SOURCE a few leases into its chunk stream. The
+   migration aborts (the target's quarantined copy is dropped, never
+   promoted — a chain can never fork onto half-streamed bytes), the
+   replica promotes through the ordinary failover path, and every get
+   stays byte-exact.
+2. **joiner partitioned mid-JOIN** — REQ_JOIN legs are dropped and the
+   joiner's rank is partitioned from rank 0's broadcast until a
+   scheduled heal; the cluster converges to exactly one new member (no
+   half-member slot), and the data path through the joiner works.
+3. **join → rebalance → leave cycle** — extents spread onto the joiner
+   under the capacity-weighted plan, everything drains off the leaver,
+   every get is byte-exact throughout, and the OCM_ALLOCTRACE ledger is
+   drained on EVERY rank (leaver included) at the end.
+
+``--plan`` prints the scenario schedules for a seed without running.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from oncilla_tpu_torch.core.errors import OcmError
+from oncilla_tpu_torch.resilience.chaos import ChaosController, ChaosSchedule, Fault
+
+
+def _fast_cfg(**kw):
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    base = dict(
+        host_arena_bytes=32 << 20,
+        device_arena_bytes=4 << 20,
+        heartbeat_s=0.1,
+        lease_s=10.0,
+        detect_interval_s=0.05,
+        suspect_after=1,
+        dead_after=2,
+        probe_timeout_s=0.25,
+        chunk_bytes=256 << 10,
+        migrate_chunk_bytes=64 << 10,
+    )
+    base.update(kw)
+    return OcmConfig(**base)
+
+
+def _assert(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def _wait(pred, timeout_s: float, what: str):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+# -- scenario 1: kill the owner mid-migration ---------------------------
+
+
+def mig_kill_schedule(seed: int, owner: int) -> ChaosSchedule:
+    """Start the migration at op 6; kill the source 3 leases into its
+    chunk stream (op 7 = rank0's MIGRATE dial, op 8 = MIGRATE_BEGIN
+    provision, op 9+ = stream chunks)."""
+    return ChaosSchedule(seed=seed, faults=(
+        Fault(op=6, action="migrate"),
+        Fault(op=9, action="kill", rank=owner),
+    ))
+
+
+def run_migration_kill(seed: int, verbose: bool = False) -> dict:
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    cfg = _fast_cfg(replicas=2)
+    total = 2 << 20
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, total, dtype=np.uint8)
+    with inprocess_cluster(3, config=cfg) as cl:
+        client = cl.client(0, heartbeat=False)
+        h = client.alloc(total, OcmKind.REMOTE_HOST)
+        _assert(h.replica_ranks, "replicas=2 placement assigned no replica")
+        owner = h.rank
+        replica = h.replica_ranks[0]
+        target = next(r for r in range(3) if r not in (owner, replica))
+        client.put(h, data, 0)  # calm phase: full payload acked + mirrored
+        rb = cl.daemons[0]._rebalancer
+
+        def migrate_fn():
+            rows = [r for r in cl.daemons[owner]._extent_rows()
+                    if r["primary"]]
+            if rows:
+                rb.migrate(rows[0], owner, target)
+
+        schedule = mig_kill_schedule(seed, owner)
+        controller = ChaosController(
+            schedule, cl.entries, kill_fn=cl.kill, migrate_fn=migrate_fn,
+        )
+        with controller.inject():
+            # The chaotic phase: small puts drive the lease counter; the
+            # scheduled migrate fires inline mid-workload and the kill
+            # lands inside ITS chunk stream.
+            step = 256 << 10
+            for off in range(0, total, step):
+                client.put(h, data[off:off + step], off)
+            got = client.get(h, total)
+        _assert(np.asarray(got).tobytes() == data.tobytes(),
+                "get after kill-mid-migration is not byte-exact")
+        _assert(not controller.pending(),
+                f"workload too short for schedule: {controller.pending()}")
+        _assert(h.rank != owner, "handle never failed over off the "
+                                 "killed source")
+
+        # Never-fork invariant: the quarantined copy on the target is
+        # dropped (not promoted) once the source's death verdict lands,
+        # and exactly one survivor serves as primary.
+        def no_fork():
+            primaries = []
+            quarantined = 0
+            for d in cl.daemons:
+                if d.rank == owner:
+                    continue
+                try:
+                    e = d.registry.lookup(h.alloc_id)
+                except OcmError:
+                    continue  # dropped copy: exactly what the abort does
+                if e.migrating:
+                    quarantined += 1
+                elif e.is_primary(d.rank):
+                    primaries.append(d.rank)
+            return quarantined == 0 and len(primaries) == 1
+        _wait(no_fork, 20.0, "quarantine abort + single-primary convergence")
+        aborted = sum(
+            d.ela_counters["migrations_aborted"] for d in cl.daemons
+        )
+        completed = sum(
+            d.ela_counters["migrations_completed"] for d in cl.daemons
+        )
+        got2 = client.get(h, total)
+        _assert(np.asarray(got2).tobytes() == data.tobytes(),
+                "post-convergence get is not byte-exact")
+        if verbose:
+            print(f"  owner {owner} killed mid-migration to {target}; "
+                  f"promoted {h.rank}; aborted={aborted} "
+                  f"completed={completed}")
+        client.free(h)
+    return {
+        "log": list(controller.log),
+        "owner": owner,
+        "target": target,
+        "promoted": h.rank,
+        "aborted": aborted,
+        "completed": completed,
+    }
+
+
+# -- scenario 2: joiner partitioned mid-JOIN ----------------------------
+
+
+def join_partition_schedule(seed: int, joiner: int) -> ChaosSchedule:
+    """Partition the (future) joiner rank from the very first lease and
+    drop the first REQ_JOIN attempt; heal once the broadcast retries
+    have piled up."""
+    return ChaosSchedule(seed=seed, faults=(
+        Fault(op=1, action="partition", rank=joiner),
+        Fault(op=2, action="drop"),
+        Fault(op=12, action="heal", rank=joiner),
+    ))
+
+
+def run_partitioned_join(seed: int, verbose: bool = False) -> dict:
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.elastic.join import join_cluster, leave_cluster
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    cfg = _fast_cfg()
+    with inprocess_cluster(2, config=cfg) as cl:
+        joiner_rank = len(cl.entries)  # next rank, known in advance
+        schedule = join_partition_schedule(seed, joiner_rank)
+        controller = ChaosController(schedule, cl.entries, kill_fn=cl.kill)
+        r0 = cl.entries[0]
+        with controller.inject():
+            d3 = join_cluster(r0.connect_host, r0.port, cfg)
+            try:
+                _assert(d3.rank == joiner_rank,
+                        f"joiner got rank {d3.rank}, expected {joiner_rank}")
+                # Convergence: the broadcast toward the joiner is
+                # partitioned until the scheduled heal; rank 0's reaper
+                # keeps retrying, and the retry leases are what drive
+                # the counter to the heal op. Converged = the heal fired
+                # AND every member (joiner included) confirmed the
+                # table with MEMBER_OK at the join epoch.
+                _wait(
+                    lambda: not controller.pending()
+                    and not cl.daemons[0]._member_unsynced
+                    and d3.entries.epoch >= cl.daemons[0].entries.epoch
+                    and all(
+                        d.entries.epoch >= cl.daemons[0].entries.epoch
+                        for d in cl.daemons
+                    ),
+                    20.0, "heal + member-table confirmation",
+                )
+                # No half-member: exactly one new slot, counted once.
+                _assert(cl.daemons[0].policy.nnodes == joiner_rank + 1,
+                        "placement table leaked a half-member slot")
+                _assert(cl.daemons[0].ela_counters["joins"] == 1,
+                        "REQ_JOIN retries were not deduplicated")
+            except BaseException:
+                d3.stop()
+                raise
+        # Data path through the joiner (post-heal, chaos done).
+        try:
+            client = cl.client(0, heartbeat=False)
+            data = np.arange(256 << 10, dtype=np.uint8)
+            hs = []
+            for _ in range(6):  # capacity policy spreads across 3 ranks
+                h = client.alloc(data.nbytes, OcmKind.REMOTE_HOST)
+                client.put(h, data, 0)
+                hs.append(h)
+            _assert(any(h.rank == joiner_rank for h in hs),
+                    "no allocation ever placed on the joiner")
+            for h in hs:
+                _assert(np.asarray(client.get(h, data.nbytes)).tobytes() == data.tobytes(),
+                        "get through the joined cluster not byte-exact")
+                client.free(h)
+            out = {
+                "log": list(controller.log),
+                "joiner": d3.rank,
+                "members": cl.daemons[0].entries.alive_count(),
+            }
+        except BaseException:
+            d3.stop()
+            raise
+        leave_cluster(d3)
+        if verbose:
+            print(f"  joiner rank {out['joiner']} converged through "
+                  f"partition; members={out['members']}")
+    return out
+
+
+# -- scenario 3: join -> rebalance -> leave, drained ledgers ------------
+
+
+def run_cycle(seed: int, verbose: bool = False) -> dict:
+    import numpy as np
+
+    from oncilla_tpu_torch.analysis import alloctrace
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.elastic.join import join_cluster, leave_cluster
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    os.environ.setdefault("OCM_ALLOCTRACE", "1")
+    alloctrace.reset()
+    cfg = _fast_cfg()
+    rng = np.random.default_rng(seed)
+    with inprocess_cluster(2, config=cfg) as cl:
+        client = cl.client(0, heartbeat=False)
+        payloads, handles = [], []
+        for _ in range(8):
+            data = rng.integers(0, 256, 384 << 10, dtype=np.uint8)
+            h = client.alloc(data.nbytes, OcmKind.REMOTE_HOST)
+            client.put(h, data, 0)
+            payloads.append(data)
+            handles.append(h)
+        r0 = cl.entries[0]
+        d3 = join_cluster(r0.connect_host, r0.port, cfg)
+        moved = 0
+        try:
+            round1 = cl.daemons[0]._rebalancer.rebalance()
+            _assert(round1["moved"] > 0,
+                    f"rebalance after join moved nothing: {round1}")
+            for h, data in zip(handles, payloads):
+                _assert(np.asarray(client.get(h, data.nbytes)).tobytes() == data.tobytes(),
+                        "get after rebalance is not byte-exact")
+            _assert(any(h.rank == d3.rank for h in handles),
+                    "no handle repointed onto the joiner")
+        except BaseException:
+            d3.stop()
+            raise
+        res = leave_cluster(d3)
+        moved = res["moved"]
+        _assert(moved > 0, "leave drained nothing despite moved extents")
+        for h, data in zip(handles, payloads):
+            _assert(np.asarray(client.get(h, data.nbytes)).tobytes() == data.tobytes(),
+                    "get after leave is not byte-exact")
+            client.free(h)
+        joiner_scopes = (d3._trace_scope,
+                         d3.host_arena.allocator._trace_scope)
+        epoch = cl.daemons[0].epoch
+        members = cl.daemons[0].entries.alive_count()
+        rebalanced = round1["moved"]
+        # Drain: close clients, then every rank's registry, arena and
+        # ledger must be empty — the leaver included (its extents were
+        # DO_FREE'd by the drain, so its scopes hold nothing either).
+        with cl._lock:
+            clients, cl.clients = list(cl.clients), []
+        for c in clients:
+            c.close()
+        _wait(
+            lambda: all(d.registry.live_count() == 0 for d in cl.daemons),
+            15.0, "registry drain",
+        )
+        for d in cl.daemons:
+            _assert(d.host_arena.allocator.bytes_live == 0,
+                    f"rank {d.rank} arena not drained")
+        _assert(d3.registry.live_count() == 0, "leaver registry not drained")
+        if alloctrace.enabled():
+            leaked = alloctrace.live()
+            _assert(not leaked,
+                    "alloctrace ledger leaked (leaver scopes "
+                    f"{joiner_scopes}): {[r.describe() for r in leaked]}")
+    if verbose:
+        print(f"  cycle: rebalance moved {rebalanced}, leave drained "
+              f"{moved}, epoch {epoch}, members {members}, ledgers clean")
+    return {
+        "rebalanced": rebalanced,
+        "drained": moved,
+        "epoch": epoch,
+        "members": members,
+    }
+
+
+# -- the smokes and the CLI ----------------------------------------------
+
+SCENARIOS = (
+    ("kill-owner-mid-migration", run_migration_kill),
+    ("partitioned-join", run_partitioned_join),
+    ("join-rebalance-leave-cycle", run_cycle),
+)
+
+
+def smoke(seed: int, verbose: bool = False) -> int:
+    # Each run records into its own flight-recorder timeline and must
+    # pass the cross-rank invariant audit (obs/audit.py): migration
+    # begin/flip/abort pairing, epoch monotonicity, fan-out-before-ack —
+    # the event TIMELINE is the oracle, not just the end state.
+    from oncilla_tpu_torch.obs import audit as obs_audit
+
+    for name, fn in SCENARIOS:
+        results = []
+        for run in (1, 2):
+            tag = "replay" if run == 2 else "..."
+            print(f"elastic smoke [{name}]: seed={seed} run {run}/2 "
+                  f"{tag}".rstrip())
+            with obs_audit.recorded(f"elastic-{name}-run{run}") as rec:
+                results.append(fn(seed, verbose=verbose))
+            print(f"  flight recorder: {rec.summary()}")
+        r1, r2 = results
+        if r1 != r2:
+            print(f"elastic smoke: FAIL — [{name}] runs diverge:\n"
+                  f"  run1: {r1}\n  run2: {r2}")
+            return 1
+        print(f"elastic smoke [{name}]: OK {r1}")
+    print("elastic smoke: OK — migration never forks, partitioned join "
+          "converges, cycle drains every ledger, interleavings replay "
+          "identically, invariant audit clean on every timeline")
+    return 0
+
+
+def main(argv=None) -> int:
+    # Host memory only: every smoke here allocates REMOTE_HOST behind
+    # in-process daemons and holds no card arena, so the CLI takes no
+    # --device (the card's path is chip_smoke.py's).
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.elastic",
+        description="elastic membership / live migration chaos smoke",
+    )
+    ap.add_argument("--smoke", action="store_true",
+                    help="run all three scenarios twice and verify "
+                         "byte-exact convergence + deterministic replay")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the scenario schedules for --seed")
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.plan:
+        for name, sched in (
+            ("kill-owner-mid-migration", mig_kill_schedule(args.seed, 1)),
+            ("partitioned-join", join_partition_schedule(args.seed, 2)),
+        ):
+            print(f"{name}:")
+            for f in sched.faults:
+                print(f"  op {f.op:>4}: {f.action}"
+                      + (f" rank {f.rank}" if f.rank >= 0 else ""))
+        return 0
+    if args.smoke:
+        return smoke(args.seed, verbose=args.verbose)
+    ap.print_help()
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,754 @@
+"""The port's copy of ``oncilla_tpu/obs/__main__.py``, line for line, with the
+imports renamed to the port's modules. Its smokes run on
+``inprocess_cluster`` (the JAX package's in-process ``local_cluster``) and
+hold host memory only.
+
+``python -m oncilla_tpu_torch.obs`` — the cluster observability CLI.
+
+Polls every daemon in the membership table over the ordinary control
+port (STATUS / STATUS_PROM / STATUS_EVENTS — observability is in-band,
+no extra listener) and renders:
+
+- the default **cluster table**: per-rank op counts, p50/p99 serve
+  latency, recent data-plane Gbit/s, live bytes, and lease pressure
+  (renewals / reaper reclaims / expired / oldest heartbeat age);
+- ``--prom <rank>``: that rank's Prometheus text exposition, for piping
+  into a pushgateway or eyeballing a scrape;
+- ``--trace out.json``: every rank's event journal (plus any local
+  ``--journal`` JSONL files) merged into one Perfetto/Chrome-trace JSON
+  with cross-process flows stitched by trace_id;
+- ``--smoke``: a self-contained end-to-end proof on an in-process
+  cluster (put/get under journaling, export, validate ≥1 cross-track
+  flow) — a CI stage;
+- ``--watch N``: live mode — redraw the cluster table every N seconds
+  until Ctrl-C (``--watch-count K`` bounds the iterations for
+  non-interactive use);
+- ``audit <dir>``: the post-mortem subcommand — merge the flight
+  recorder's segments (``OCM_FLIGHTREC``) and run the cross-rank
+  invariant checks of :mod:`~oncilla_tpu_torch.obs.audit` over the timeline,
+  exiting nonzero on any finding;
+- ``slo``: poll every rank's STATUS_PROM into the in-process metrics
+  history (:mod:`~oncilla_tpu_torch.obs.scrape`) and print the burn-rate
+  verdict table of :mod:`~oncilla_tpu_torch.obs.slo` (``--watch N`` for a
+  live view; ``--selftest`` runs the self-contained healthy-green +
+  seeded-burn CI fixture on an in-process cluster);
+- ``critpath <sources...>``: join spans from flight-recorder dirs /
+  ``.seg`` files / journal JSONL dumps into cross-rank op trees and
+  print per-phase critical-path latency attribution
+  (:mod:`~oncilla_tpu_torch.obs.critpath`), with ``--min-attrib`` /
+  ``--require-cross-rank`` gates for CI.
+
+Membership comes from ``--nodefile`` or ``$OCM_NODEFILE`` (the same file
+the daemons were started with).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import sys
+import time
+
+from oncilla_tpu_torch.obs import export
+
+
+def _rank_request(entry, msg):
+    from oncilla_tpu_torch.runtime.protocol import request
+
+    s = socket.create_connection(
+        (entry.connect_host, entry.port), timeout=10.0
+    )
+    try:
+        return request(s, msg)
+    finally:
+        s.close()
+
+
+def _poll_status(entry) -> dict | None:
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType
+
+    try:
+        r = _rank_request(entry, Message(MsgType.STATUS, {}))
+    except Exception as e:  # noqa: BLE001 — a down daemon is a table row,
+        return {"error": f"{type(e).__name__}: {e}"}  # not a CLI crash
+    f = dict(r.fields)
+    if r.data:
+        try:
+            f.update(json.loads(bytes(r.data)))
+        except (ValueError, UnicodeDecodeError):
+            pass
+    return f
+
+
+def _declines_obs(exc) -> bool:
+    """A typed BAD_MSG to an obs request is a PEER THAT PREDATES the
+    observability surface (a pre-obs native daemon, or one started with
+    OCM_NATIVE_OBS=0) declining the family by silence — a dash cell and
+    a note, never a traceback or an omitted rank."""
+    from oncilla_tpu_torch.core.errors import OcmRemoteError
+    from oncilla_tpu_torch.runtime.protocol import ErrCode
+
+    return (isinstance(exc, OcmRemoteError)
+            and exc.code == int(ErrCode.BAD_MSG))
+
+
+def _poll_events_count(entry) -> tuple[int | None, str | None]:
+    """Journal depth via STATUS_EVENTS (the table's ``events`` column).
+    Returns (count, None), (None, "declined") for a BAD_MSG peer, or
+    (None, "error") when the rank is unreachable."""
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType
+
+    try:
+        r = _rank_request(entry, Message(MsgType.STATUS_EVENTS, {}))
+    except Exception as e:  # noqa: BLE001 — degrade, never crash the table
+        return None, ("declined" if _declines_obs(e) else "error")
+    return int(r.fields.get("count", 0)), None
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+        n /= 1024
+    return f"{n:.1f}GiB"
+
+
+_PRIO_NAMES = {0: "low", 1: "normal", 2: "high"}
+
+_SPARK = "▁▂▃▄▅▆▇█"
+
+
+def _hist_spark(ops: dict) -> str:
+    """Latency histogram summary for one rank: the per-op cumulative
+    bucket counts (Tracer hist) summed across its dcn serve ops and
+    rendered as a fixed-width sparkline, fastest bucket on the left."""
+    total: list[int] = []
+    for st in ops.values():
+        counts = (st.get("hist") or {}).get("counts") or []
+        if len(counts) > len(total):
+            total.extend([0] * (len(counts) - len(total)))
+        for i, c in enumerate(counts):
+            total[i] += c
+    if not total or not any(total):
+        return "-"
+    peak = max(total)
+    return "".join(
+        _SPARK[min((c * (len(_SPARK) - 1) + peak - 1) // peak,
+                   len(_SPARK) - 1)] if c else "."
+        for c in total
+    )
+
+
+def _app_rows(rank: int, st: dict) -> list[list[str]]:
+    """Per-app QoS rows for one rank: app id, priority class, quota use
+    (live/limit bytes + handles), heartbeat age. Quota state comes from
+    the qos tail; heartbeat age from the lease stats (both keyed by the
+    same pid@rank app id)."""
+    apps = (st.get("qos") or {}).get("apps") or {}
+    hb = (st.get("leases") or {}).get("apps") or {}
+    out = []
+    for app, rec in sorted(apps.items()):
+        qb = rec.get("quota_bytes", 0)
+        qh = rec.get("quota_handles", 0)
+        out.append([
+            app,
+            str(rank),
+            _PRIO_NAMES.get(rec.get("priority", 1), "?"),
+            (f"{_fmt_bytes(rec.get('used_bytes', 0))}/"
+             + (_fmt_bytes(qb) if qb else "inf")),
+            (f"{rec.get('handles', 0)}/" + (str(qh) if qh else "inf")),
+            f"{hb[app]:.1f}" if app in hb else "-",
+        ])
+    return out
+
+
+def _serving_rows(rank: int, st: dict) -> list[list[str]]:
+    """Per-engine serving rows for one rank (the co-located engines a
+    daemon folds into its STATUS tail — serving/metrics.py): tokens by
+    phase, fast-tier hit ratio, stall time, per-tier page occupancy and
+    prefix-sharing state."""
+    srv = st.get("serving") or {}
+    out = []
+    for eng in srv.get("engines", []):
+        toks = eng.get("tokens", {})
+        tp = eng.get("tier_pages", {})
+        pref = eng.get("prefix", {})
+        batch = eng.get("batch") or {}
+        steps = batch.get("steps", 0)
+        mean = batch.get("size_sum", 0) / steps if steps else 0.0
+        out.append([
+            eng.get("engine", "engine"),
+            str(rank),
+            f"{toks.get('prefill', 0)}/{toks.get('decode', 0)}",
+            f"{100.0 * eng.get('hit_ratio', 0.0):.0f}%",
+            f"{1e3 * eng.get('stall_s', 0.0):.1f}",
+            (f"{tp.get('hbm', 0)}/{tp.get('host', 0)}"
+             f"/{tp.get('remote', 0)}"),
+            _fmt_bytes(pref.get("shared_bytes", 0)),
+            f"{pref.get('hits', 0)}/{pref.get('cow', 0)}",
+            # mean fused-batch size / max (0/0 = interleaved engine)
+            f"{mean:.1f}/{batch.get('size_max', 0)}",
+        ])
+    return out
+
+
+def _table(entries) -> int:
+    cols = ["rank", "nodes", "members", "allocs", "live", "ops", "p50_us",
+            "p99_us", "lat_hist", "events", "gbit/s", "leases r/x/e",
+            "migr ok/ab", "mux if/pk/ops", "hb_age_s"]
+    rows = []
+    app_rows: list[list[str]] = []
+    serving_rows: list[list[str]] = []
+    declined: list[int] = []
+    any_ok = False
+    for e in entries:
+        st = _poll_status(e)
+        if "error" in st:
+            rows.append([str(e.rank), "-", "-", "-", "-", "-", "-", "-",
+                         "-", "-", "-", "-", "-", "-", st["error"][:40]])
+            continue
+        any_ok = True
+        ev_count, ev_note = _poll_events_count(e)
+        if ev_note == "declined":
+            declined.append(e.rank)
+        app_rows.extend(_app_rows(e.rank, st))
+        serving_rows.extend(_serving_rows(e.rank, st))
+        ops = (st.get("dcn") or {}).get("ops") or {}
+        count = sum(v.get("count", 0) for v in ops.values())
+        p50 = max((v.get("p50_us", 0.0) for v in ops.values()), default=0.0)
+        p99 = max((v.get("p99_us", 0.0) for v in ops.values()), default=0.0)
+        transfers = (st.get("dcn") or {}).get("transfers") or []
+        gbps = transfers[-1].get("gbps", 0.0) if transfers else 0.0
+        leases = st.get("leases") or {}
+        apps = leases.get("apps") or {}
+        ela = st.get("elastic") or {}
+        ec = ela.get("counters") or {}
+        rows.append([
+            str(st.get("rank", e.rank)),
+            str(st.get("nnodes", "-")),
+            str(ela.get("members", "-")),
+            str(st.get("live_allocs", 0)),
+            _fmt_bytes(st.get("host_bytes_live", 0)
+                       + st.get("device_bytes_live", 0)),
+            str(count),
+            f"{p50:.0f}",
+            f"{p99:.0f}",
+            _hist_spark(ops),
+            str(ev_count) if ev_count is not None else "-",
+            f"{gbps:.2f}",
+            (f"{leases.get('renewals', 0)}/{leases.get('reclaims', 0)}"
+             f"/{leases.get('expired', 0)}"),
+            (f"{ec.get('migrations_completed', 0)}"
+             f"/{ec.get('migrations_aborted', 0)}"),
+            # Mux serving (runtime/mux.py): tagged control ops in flight
+            # NOW / peak / total tagged ops — dash for pre-mux daemons
+            # (the C++ twin sends no mux tail).
+            (f"{mx.get('inflight', 0)}/{mx.get('peak_inflight', 0)}"
+             f"/{mx.get('tagged_ops', 0)}") if (mx := st.get("mux"))
+            else "-",
+            f"{max(apps.values()):.1f}" if apps else "-",
+        ])
+    widths = [
+        max(len(c), *(len(r[i]) for r in rows)) if rows else len(c)
+        for i, c in enumerate(cols)
+    ]
+    print("  ".join(c.ljust(widths[i]) for i, c in enumerate(cols)))
+    for r in rows:
+        print("  ".join(v.ljust(widths[i]) for i, v in enumerate(r)))
+    if declined:
+        print("note: rank(s) "
+              + ",".join(str(r) for r in sorted(declined))
+              + " decline STATUS_EVENTS/STATUS_PROM (pre-obs daemon); "
+                "obs cells dashed")
+    if app_rows:
+        acols = ["app", "rank", "prio", "bytes used/quota",
+                 "handles", "hb_age_s"]
+        awidths = [
+            max(len(c), *(len(r[i]) for r in app_rows))
+            for i, c in enumerate(acols)
+        ]
+        print()
+        print("  ".join(c.ljust(awidths[i]) for i, c in enumerate(acols)))
+        for r in app_rows:
+            print("  ".join(v.ljust(awidths[i]) for i, v in enumerate(r)))
+    if serving_rows:
+        scols = ["engine", "rank", "tok pf/dec", "kv_hit", "stall_ms",
+                 "pages h/w/c", "shared", "pfx hit/cow", "batch avg/max"]
+        swidths = [
+            max(len(c), *(len(r[i]) for r in serving_rows))
+            for i, c in enumerate(scols)
+        ]
+        print()
+        print("  ".join(c.ljust(swidths[i]) for i, c in enumerate(scols)))
+        for r in serving_rows:
+            print("  ".join(v.ljust(swidths[i]) for i, v in enumerate(r)))
+    return 0 if any_ok else 1
+
+
+def _prom(entries, rank: int) -> int:
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType
+
+    if not 0 <= rank < len(entries):
+        print(f"rank {rank} not in the {len(entries)}-node membership",
+              file=sys.stderr)
+        return 2
+    try:
+        r = _rank_request(entries[rank], Message(MsgType.STATUS_PROM, {}))
+    except Exception as e:  # noqa: BLE001 — one-line note, no traceback
+        if _declines_obs(e):
+            print(f"rank {rank}: STATUS_PROM declined (typed BAD_MSG — "
+                  "pre-obs daemon, or OCM_NATIVE_OBS=0)", file=sys.stderr)
+        else:
+            print(f"rank {rank}: STATUS_PROM unavailable "
+                  f"({type(e).__name__}: {e})", file=sys.stderr)
+        return 1
+    sys.stdout.write(bytes(r.data).decode("utf-8"))
+    return 0
+
+
+def _trace(entries, out_path: str, journal_files: list[str]) -> int:
+    from oncilla_tpu_torch.obs import journal
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType
+
+    streams: list[list[dict]] = [journal.events()]
+    for path in journal_files:
+        streams.append(journal.load_jsonl(path))
+    polled = 0
+    for e in entries:
+        try:
+            r = _rank_request(e, Message(MsgType.STATUS_EVENTS, {}))
+        except Exception as exc:  # noqa: BLE001 — keep merging survivors
+            if _declines_obs(exc):
+                print(f"rank {e.rank}: STATUS_EVENTS declined (typed "
+                      "BAD_MSG — pre-obs daemon); merging the rest",
+                      file=sys.stderr)
+            else:
+                print(f"rank {e.rank}: journal unavailable "
+                      f"({type(exc).__name__}: {exc})", file=sys.stderr)
+            continue
+        polled += 1
+        streams.append([
+            json.loads(line)
+            for line in bytes(r.data).decode("utf-8").splitlines()
+            if line.strip()
+        ])
+    merged = export.merge(*streams)
+    summary = export.write_chrome_trace(merged, out_path)
+    print(f"{out_path}: {summary['spans']} spans on {summary['tracks']} "
+          f"tracks, {summary['flows']} cross-track flow(s), "
+          f"{summary['events']} events from {polled} daemon(s) + "
+          f"{len(journal_files)} file(s)")
+    return 0 if merged else 1
+
+
+def _smoke() -> int:
+    """End-to-end proof with no external cluster: put/get over an
+    in-process 2-daemon cluster under journaling, export the merged
+    trace, and validate the JSON parses with ≥1 cross-track flow."""
+    import tempfile
+
+    import numpy as np
+
+    from oncilla_tpu_torch.obs import journal
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    was_journaling = journal.enabled()
+    journal.set_enabled(True)
+    cfg = OcmConfig(
+        host_arena_bytes=8 << 20, device_arena_bytes=1 << 20,
+        chunk_bytes=256 << 10, dcn_stripes=2,
+        dcn_stripe_min_bytes=256 << 10, heartbeat_s=5.0,
+    )
+    try:
+        with inprocess_cluster(2, config=cfg) as c:
+            # Host memory only (REMOTE_HOST): the context's device arm
+            # is a CPU buffer nothing here touches, not a fallback.
+            ctx = c.context(0, heartbeat=False, device="cpu")
+            from oncilla_tpu_torch.core.kinds import OcmKind
+
+            h = ctx.alloc(1 << 20, OcmKind.REMOTE_HOST)
+            try:
+                data = np.arange(1 << 20, dtype=np.uint8)
+                ctx.put(h, data)
+                got = np.asarray(ctx.get(h))
+            finally:
+                ctx.free(h)
+            if not np.array_equal(got, data):
+                print("obs smoke: put/get roundtrip mismatch",
+                      file=sys.stderr)
+                return 1
+    finally:
+        journal.set_enabled(was_journaling)
+    with tempfile.NamedTemporaryFile(
+        "r", suffix=".trace.json", delete=False
+    ) as tf:
+        out_path = tf.name
+    summary = export.write_chrome_trace(export.merge(journal.events()),
+                                        out_path)
+    with open(out_path, encoding="utf-8") as fh:
+        trace = json.load(fh)  # must parse as Chrome-trace JSON
+    ok = (
+        isinstance(trace.get("traceEvents"), list)
+        and summary["spans"] > 0
+        and summary["tracks"] >= 2
+        and summary["flows"] >= 1
+    )
+    print(f"obs smoke: {summary['spans']} spans, {summary['tracks']} "
+          f"tracks, {summary['flows']} cross-track flow(s) -> "
+          f"{'OK' if ok else 'FAILED'} ({out_path})")
+    os.unlink(out_path)
+    return 0 if ok else 1
+
+
+def _audit_cmd(argv: list[str]) -> int:
+    """``python -m oncilla_tpu_torch.obs audit <dir>`` — merge the flight
+    recorder's segments and run every invariant check. Sibling
+    recording subdirectories are audited as independent timelines.
+    The same entry as ``python -m oncilla_tpu_torch.obs.audit``."""
+    from oncilla_tpu_torch.obs import audit
+
+    return audit.main(argv)
+
+
+def _critpath_cmd(argv: list[str]) -> int:
+    """``python -m oncilla_tpu_torch.obs critpath <sources...>`` — critical
+    -path latency attribution over merged spans, with the CI gates the
+    CI obs stage leans on."""
+    from oncilla_tpu_torch.obs import critpath
+
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.obs critpath",
+        description="critical-path latency attribution over merged "
+                    "journal spans",
+    )
+    ap.add_argument("sources", nargs="+",
+                    help="flight-recorder dir(s), .seg file(s) and/or "
+                         "journal JSONL dump(s)")
+    ap.add_argument("--top", type=int, default=3, metavar="N",
+                    help="print the N slowest trees' critical paths")
+    ap.add_argument("--min-attrib", type=float, default=0.0,
+                    metavar="FRAC", dest="min_attrib",
+                    help="exit nonzero unless >=1 qualifying tree "
+                         "attributes at least FRAC of its wall time to "
+                         "named phases")
+    ap.add_argument("--require-cross-rank", action="store_true",
+                    dest="cross_rank",
+                    help="only trees spanning >1 track qualify (and "
+                         ">=1 must exist)")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable trees + phase table on stdout")
+    args = ap.parse_args(argv)
+    try:
+        events = critpath.load_events(args.sources)
+    except OSError as e:
+        print(f"critpath: {e}", file=sys.stderr)
+        return 2
+    trees = critpath.assemble(events)
+    if args.as_json:
+        json.dump({"trees": trees, "phases": critpath.phase_table(trees)},
+                  sys.stdout, indent=2, default=str)
+        print()
+    else:
+        sys.stdout.write(critpath.render_report(trees, top=args.top))
+    if not trees:
+        print("critpath: no op trees (need span events with trace ids)",
+              file=sys.stderr)
+        return 1
+    pool = ([t for t in trees if len(t["tracks"]) > 1]
+            if args.cross_rank else trees)
+    if not pool:
+        print("critpath: no cross-rank tree in the stream",
+              file=sys.stderr)
+        return 1
+    best = max(t["attributed_frac"] for t in pool)
+    if best < args.min_attrib:
+        print(f"critpath: best qualifying attribution {best * 100:.1f}% "
+              f"< required {args.min_attrib * 100:.1f}%", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _slo_table(result: dict, history_meta: dict) -> None:
+    cols = ["objective", "kind", "prio", "target", "ok", "active",
+            "burn_fast", "burn_slow", "err_fast", "n_fast"]
+    rows = []
+    for v in result["objectives"]:
+        rows.append([
+            v["objective"], v["kind"], v["priority"] or "-",
+            f"{v['target']:g}",
+            "ok" if v["ok"] else "BURN",
+            "yes" if v["active"] else "idle",
+            f"{v['burn_fast']:.2f}", f"{v['burn_slow']:.2f}",
+            f"{v['error_fast']:.4f}", f"{v['n_fast']:.0f}",
+        ])
+    widths = [
+        max(len(c), *(len(r[i]) for r in rows)) if rows else len(c)
+        for i, c in enumerate(cols)
+    ]
+    print("  ".join(c.ljust(widths[i]) for i, c in enumerate(cols)))
+    for r in rows:
+        print("  ".join(v.ljust(widths[i]) for i, v in enumerate(r)))
+    burning = [v["objective"] for v in result["objectives"] if not v["ok"]]
+    verdict = ("OK" if not burning
+               else "BURNING: " + ",".join(burning))
+    print(f"slo: {verdict}  (windows {result['fast_s']:g}s/"
+          f"{result['slow_s']:g}s, threshold {result['burn_threshold']:g}x, "
+          f"{history_meta.get('series', 0)} series over "
+          f"{history_meta.get('scrapes', 0)} scrape(s), "
+          f"{history_meta.get('errors', 0)} fetch error(s))")
+
+
+def _slo_selftest() -> int:
+    """Self-contained SLO proof on an in-process cluster, the CI
+    obs stage: a healthy put/get run must evaluate green with >=1 active
+    objective and a validating ``ocm_slo_*`` exposition, then a seeded
+    slow handler (``handler_delay_s`` — inside the serve span, so the
+    latency histograms see it) must trip the burn-rate alert and leave
+    an ``slo_burn`` journal event."""
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.obs import journal
+    from oncilla_tpu_torch.obs import prom as obs_prom
+    from oncilla_tpu_torch.obs import slo as obs_slo
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.runtime.protocol import MsgType
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    was_journaling = journal.enabled()
+    journal.set_enabled(True)
+    cfg = OcmConfig(
+        host_arena_bytes=8 << 20, device_arena_bytes=1 << 20,
+        chunk_bytes=256 << 10, heartbeat_s=5.0,
+    )
+    try:
+        with inprocess_cluster(2, config=cfg) as c:
+            # Host memory only (REMOTE_HOST): the context's device arm
+            # is a CPU buffer nothing here touches, not a fallback.
+            ctx = c.context(0, heartbeat=False, device="cpu")
+            # Budget 0.2 s: latency_high's bound is 0.1 s, so the seeded
+            # 0.15 s handler delay breaches exactly that objective while
+            # the healthy sub-millisecond ops stay far inside every one.
+            runner = obs_slo.SloRunner(
+                ctx.fetch_prom, range(2),
+                objectives=obs_slo.default_objectives(budget_s=0.2),
+                interval_s=60.0, fast_s=8.0, slow_s=16.0,
+            )
+            data = np.arange(64 << 10, dtype=np.uint8)
+
+            def burst(n: int) -> None:
+                for _ in range(n):
+                    h = ctx.alloc(len(data), OcmKind.REMOTE_HOST)
+                    try:
+                        ctx.put(h, data)
+                        np.asarray(ctx.get(h))
+                    finally:
+                        ctx.free(h)
+
+            burst(6)
+            runner.tick()
+            time.sleep(0.2)
+            burst(6)
+            healthy = runner.tick()
+            fams = obs_prom.validate(runner.engine.render_prom(0))
+            n_active = sum(
+                1 for v in healthy["objectives"] if v["active"]
+            )
+            healthy_ok = (
+                healthy["ok"] and n_active >= 1 and "ocm_slo_ok" in fams
+                and "ocm_slo_burn_rate" in fams
+            )
+            print(f"slo selftest healthy: ok={healthy['ok']} "
+                  f"active={n_active}/{len(healthy['objectives'])} "
+                  f"ocm_slo families={len(fams)}")
+            _slo_table(healthy, runner.history.meta())
+            for d in c.daemons:
+                d.handler_delay_types = frozenset(
+                    {MsgType.DATA_PUT, MsgType.DATA_GET}
+                )
+                d.handler_delay_s = 0.15
+            try:
+                burst(4)
+            finally:
+                for d in c.daemons:
+                    d.handler_delay_s = 0.0
+                    d.handler_delay_types = frozenset()
+            time.sleep(0.2)
+            burning = runner.tick()
+            tripped = [
+                v["objective"] for v in burning["objectives"]
+                if not v["ok"]
+            ]
+            burn_events = [
+                e for e in journal.events() if e.get("ev") == "slo_burn"
+            ]
+            print()
+            print(f"slo selftest seeded burn: tripped={tripped or '-'} "
+                  f"slo_burn events={len(burn_events)}")
+            _slo_table(burning, runner.history.meta())
+            burn_ok = (
+                not burning["ok"]
+                and "latency_high" in tripped
+                and burn_events
+            )
+    finally:
+        journal.set_enabled(was_journaling)
+    ok = bool(healthy_ok and burn_ok)
+    print(f"slo selftest: {'OK' if ok else 'FAILED'}")
+    return 0 if ok else 1
+
+
+def _slo_cmd(argv: list[str]) -> int:
+    """``python -m oncilla_tpu_torch.obs slo`` — evaluate the OCM_SLO
+    objectives against live ranks (two STATUS_PROM sweeps feed the
+    windowed history) and print the verdict table."""
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.obs slo",
+        description="SLO burn-rate verdicts over in-band STATUS_PROM "
+                    "scrapes",
+    )
+    ap.add_argument("--nodefile", default=None,
+                    help="membership nodefile (default: $OCM_NODEFILE)")
+    ap.add_argument("--interval", type=float, default=1.0, metavar="S",
+                    help="spacing between the two one-shot scrapes "
+                         "(and the --watch redraw period)")
+    ap.add_argument("--watch", action="store_true",
+                    help="keep scraping and redraw the table until "
+                         "Ctrl-C")
+    ap.add_argument("--watch-count", type=int, default=0, metavar="K",
+                    help="with --watch: stop after K redraws")
+    ap.add_argument("--prom", action="store_true", dest="as_prom",
+                    help="print the ocm_slo_* exposition instead of "
+                         "the table")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable verdict on stdout")
+    ap.add_argument("--selftest", action="store_true",
+                    help="self-contained healthy + seeded-burn fixture "
+                         "on an in-process cluster (ignores --nodefile)")
+    args = ap.parse_args(argv)
+
+    if args.selftest:
+        return _slo_selftest()
+
+    from oncilla_tpu_torch.obs import slo as obs_slo
+    from oncilla_tpu_torch.runtime.membership import parse_nodefile
+    from oncilla_tpu_torch.runtime.protocol import Message, MsgType
+
+    nodefile = args.nodefile or os.environ.get("OCM_NODEFILE")
+    if not nodefile:
+        ap.error("--nodefile (or $OCM_NODEFILE) is required")
+    entries = parse_nodefile(nodefile)
+
+    def fetch(rank: int) -> str:
+        r = _rank_request(entries[rank], Message(MsgType.STATUS_PROM, {}))
+        return bytes(r.data).decode("utf-8")
+
+    runner = obs_slo.SloRunner.from_env(fetch, range(len(entries)))
+    if runner is None:
+        print(f"slo: disabled ({obs_slo.ENV_SLO}="
+              f"{os.environ.get(obs_slo.ENV_SLO)!r})", file=sys.stderr)
+        return 2
+    interval = max(args.interval, 0.1)
+    runner.tick()
+    drawn = 0
+    rc = 0
+    try:
+        while True:
+            time.sleep(interval)
+            result = runner.tick()
+            if args.watch and sys.stdout.isatty():
+                print("\x1b[2J\x1b[H", end="")
+            if args.as_prom:
+                sys.stdout.write(runner.engine.render_prom(0))
+            elif args.as_json:
+                json.dump(runner.meta(), sys.stdout, indent=2,
+                          default=str)
+                print()
+            else:
+                if args.watch:
+                    print(f"every {interval:g}s  "
+                          f"{time.strftime('%H:%M:%S')}  (Ctrl-C to exit)")
+                _slo_table(result, runner.history.meta())
+            rc = 0 if result["ok"] else 1
+            drawn += 1
+            if not args.watch:
+                return rc
+            if args.watch_count and drawn >= args.watch_count:
+                return rc
+    except KeyboardInterrupt:
+        print()
+        return rc
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "audit":
+        return _audit_cmd(argv[1:])
+    if argv and argv[0] == "critpath":
+        return _critpath_cmd(argv[1:])
+    if argv and argv[0] == "slo":
+        return _slo_cmd(argv[1:])
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.obs",
+        description="oncilla-tpu cluster observability",
+    )
+    ap.add_argument("--nodefile", default=None,
+                    help="membership nodefile (default: $OCM_NODEFILE)")
+    ap.add_argument("--prom", type=int, metavar="RANK", default=None,
+                    help="print RANK's Prometheus text exposition")
+    ap.add_argument("--trace", metavar="OUT", default=None,
+                    help="write the merged Perfetto/Chrome trace JSON")
+    ap.add_argument("--journal", action="append", default=[],
+                    metavar="FILE",
+                    help="extra local journal JSONL file(s) to merge "
+                         "into --trace")
+    ap.add_argument("--smoke", action="store_true",
+                    help="self-contained end-to-end validation "
+                         "(in-process cluster; ignores --nodefile)")
+    ap.add_argument("--watch", type=float, metavar="N", default=None,
+                    help="redraw the cluster table every N seconds "
+                         "(Ctrl-C exits cleanly)")
+    ap.add_argument("--watch-count", type=int, metavar="K", default=0,
+                    help="with --watch: stop after K redraws "
+                         "(0 = until Ctrl-C; non-interactive runs/CI)")
+    args = ap.parse_args(argv)
+
+    if args.smoke:
+        return _smoke()
+
+    nodefile = args.nodefile or os.environ.get("OCM_NODEFILE")
+    if not nodefile:
+        ap.error("--nodefile (or $OCM_NODEFILE) is required")
+    from oncilla_tpu_torch.runtime.membership import parse_nodefile
+
+    entries = parse_nodefile(nodefile)
+    if args.prom is not None:
+        return _prom(entries, args.prom)
+    if args.trace is not None:
+        return _trace(entries, args.trace, args.journal)
+    if args.watch is not None:
+        interval = max(args.watch, 0.1)
+        drawn = 0
+        rc = 0
+        try:
+            while True:
+                if sys.stdout.isatty():
+                    print("\x1b[2J\x1b[H", end="")
+                print(f"every {interval:g}s  "
+                      f"{time.strftime('%H:%M:%S')}  (Ctrl-C to exit)")
+                rc = _table(entries)
+                drawn += 1
+                if args.watch_count and drawn >= args.watch_count:
+                    return rc
+                time.sleep(interval)
+        except KeyboardInterrupt:
+            print()
+            return rc
+    return _table(entries)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

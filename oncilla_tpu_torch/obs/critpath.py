@@ -1,0 +1,276 @@
+"""The port's copy of ``oncilla_tpu/obs/critpath.py``, line for line, with the
+imports renamed to the port's modules.
+
+Critical-path latency attribution over merged journal spans.
+
+The exporter (:mod:`~oncilla_tpu_torch.obs.export`) draws traces; this module
+answers the operator question the drawing only hints at: *where did the
+p99 go?* Input is any merged event stream (in-memory ring, STATUS_EVENTS
+pulls, flight-recorder segments, JSONL dumps); spans sharing a
+``trace_id`` are joined into op trees on ``parent_span_id`` — exactly
+the Dapper parentage the wire protocol already propagates — and each
+tree's wall time is decomposed:
+
+* every span's **self time** is its duration minus the union of its
+  children's intervals (children clamped into the parent to absorb
+  cross-host clock skew);
+* ``phase`` journal events (``journal.phase``) carve named slices out
+  of the span they bind to — client queue, mux in-flight window wait,
+  daemon dispatch queue, replica fan-out, KV residency, the fused jit
+  step;
+* whatever self time no phase claims is attributed to the span's own op
+  name (the handler actually doing the work), so 100% of a tree's wall
+  time lands on a *named* phase — "unattributed" is a bug in this
+  module, not an expected row.
+
+The **critical path** per tree is the classic backward sweep: from the
+root's end, repeatedly step into the latest-ending child overlapping
+the cursor; time not covered by any child on that walk is the owning
+span's on-path self time. ``obs critpath`` prints both views: the
+per-tree path for the slowest ops, and a per-(op, priority) table of
+p50/p99 seconds per phase across all trees.
+
+Stdlib-only by the obs-package contract.
+"""
+
+from __future__ import annotations
+
+import os
+
+from oncilla_tpu_torch.obs import export, flightrec, journal
+
+
+# -- loading ------------------------------------------------------------
+
+
+def load_events(sources: list[str]) -> list[dict]:
+    """Events from any mix of flight-recorder directories, ``.seg``
+    files, and JSONL journal dumps, merged and (jid, seq)-deduped."""
+    streams: list[list[dict]] = []
+    for src in sources:
+        if os.path.isdir(src):
+            evts, _issues = flightrec.read_dir(src)
+            streams.append(evts)
+        elif src.endswith(".seg"):
+            evts, _issues = flightrec.read_segment(src)
+            streams.append(evts)
+        else:
+            streams.append(journal.load_jsonl(src))
+    return export.merge(*streams)
+
+
+# -- tree assembly ------------------------------------------------------
+
+
+class _Node:
+    __slots__ = ("e", "children", "phases")
+
+    def __init__(self, e: dict):
+        self.e = e
+        self.children: list[_Node] = []
+        self.phases: list[dict] = []
+
+
+def _interval(e: dict) -> tuple[float, float]:
+    t0 = float(e.get("t_wall") or e.get("ts", 0.0))
+    return t0, t0 + float(e.get("dur_us", 0.0)) / 1e6
+
+
+def _clamp(t0: float, t1: float, lo: float, hi: float) -> tuple[float, float]:
+    t0 = min(max(t0, lo), hi)
+    t1 = min(max(t1, t0), hi)
+    return t0, t1
+
+
+def _union_len(ivals: list[tuple[float, float]]) -> float:
+    total, cur0, cur1 = 0.0, None, None
+    for a, b in sorted(ivals):
+        if cur1 is None or a > cur1:
+            if cur1 is not None:
+                total += cur1 - cur0
+            cur0, cur1 = a, b
+        else:
+            cur1 = max(cur1, b)
+    if cur1 is not None:
+        total += cur1 - cur0
+    return total
+
+
+def assemble(events: list[dict]) -> list[dict]:
+    """Join spans into op trees and decompose each tree's wall time.
+
+    Returns one dict per tree (roots = spans whose parent is absent
+    from the stream), largest wall time first:
+    ``{trace_id, root_op, priority, wall_s, n_spans, tracks,
+    attribution: {phase: seconds}, attributed_frac,
+    critical_path: [(op, seconds), ...]}``."""
+    nodes: dict[tuple[int, int], _Node] = {}
+    for e in events:
+        if e.get("ev") == "span" and e.get("trace_id") and e.get("span_id"):
+            nodes[(e["trace_id"], e["span_id"])] = _Node(e)
+    roots: list[_Node] = []
+    for key, node in nodes.items():
+        parent = nodes.get((key[0], node.e.get("parent_span_id") or 0))
+        if parent is not None and parent is not node:
+            parent.children.append(node)
+        else:
+            roots.append(node)
+    for e in events:
+        if e.get("ev") == "phase":
+            node = nodes.get((e.get("trace_id", 0), e.get("span_id", 0)))
+            if node is not None:
+                node.phases.append(e)
+
+    trees = []
+    for root in roots:
+        t0, t1 = _interval(root.e)
+        if t1 <= t0:
+            continue
+        attribution: dict[str, float] = {}
+        tracks: set[str] = set()
+        priorities: set[str] = set()
+        n_spans = 0
+
+        def walk(node: _Node, lo: float, hi: float) -> tuple[float, float]:
+            nonlocal n_spans
+            n_spans += 1
+            tracks.add(str(node.e.get("track") or f"pid{node.e.get('pid', 0)}"))
+            for src in (node.e, *(p for p in node.phases)):
+                if src.get("priority") not in (None, ""):
+                    priorities.add(str(src["priority"]))
+            s0, s1 = _clamp(*_interval(node.e), lo, hi)
+            kid_ivals = [walk(k, s0, s1) for k in node.children]
+            self_s = max(0.0, (s1 - s0) - _union_len(kid_ivals))
+            named = 0.0
+            for p in node.phases:
+                named += float(p.get("dur_us", 0.0)) / 1e6
+            # Phases bound to this span can only describe its SELF time;
+            # when marks overlap a child (or each other) scale them down
+            # rather than invent time the span does not own.
+            scale = min(1.0, self_s / named) if named > 0 else 0.0
+            for p in node.phases:
+                name = str(p.get("phase", "?"))
+                attribution[name] = attribution.get(name, 0.0) + (
+                    float(p.get("dur_us", 0.0)) / 1e6 * scale
+                )
+            own = self_s - named * scale
+            if own > 0:
+                op = str(node.e.get("op", "?"))
+                attribution[op] = attribution.get(op, 0.0) + own
+            return s0, s1
+
+        walk(root, t0, t1)
+
+        # Backward critical-path sweep.
+        path: dict[str, float] = {}
+
+        def sweep(node: _Node, lo: float, hi: float) -> None:
+            kids = []
+            for k in node.children:
+                k0, k1 = _clamp(*_interval(k.e), lo, hi)
+                if k1 > k0:
+                    kids.append((k1, k0, k))
+            cur = hi
+            op = str(node.e.get("op", "?"))
+            for k1, k0, kid in sorted(kids, reverse=True):
+                if cur <= lo:
+                    break
+                if min(k1, cur) <= lo:
+                    continue
+                if k1 < cur:
+                    path[op] = path.get(op, 0.0) + (cur - k1)
+                sweep(kid, k0, min(k1, cur))
+                cur = min(cur, k0)
+            if cur > lo:
+                path[op] = path.get(op, 0.0) + (cur - lo)
+
+        sweep(root, t0, t1)
+
+        wall = t1 - t0
+        attributed = sum(attribution.values())
+        trees.append({
+            "trace_id": root.e.get("trace_id", 0),
+            "root_op": str(root.e.get("op", "?")),
+            "priority": sorted(priorities)[0] if priorities else "-",
+            "wall_s": wall,
+            "n_spans": n_spans,
+            "tracks": sorted(tracks),
+            "attribution": dict(
+                sorted(attribution.items(), key=lambda kv: -kv[1])
+            ),
+            "attributed_frac": min(1.0, attributed / wall) if wall else 0.0,
+            "critical_path": sorted(path.items(), key=lambda kv: -kv[1]),
+        })
+    trees.sort(key=lambda t: -t["wall_s"])
+    return trees
+
+
+# -- aggregation --------------------------------------------------------
+
+
+def _pct(vals: list[float], q: float) -> float:
+    if not vals:
+        return 0.0
+    vals = sorted(vals)
+    i = min(len(vals) - 1, int(round(q * (len(vals) - 1))))
+    return vals[i]
+
+
+def phase_table(trees: list[dict]) -> list[dict]:
+    """Per-(root op, priority, phase) aggregate across trees: count,
+    p50/p99 of per-tree phase seconds, and the phase's share of the
+    group's total attributed time."""
+    groups: dict[tuple[str, str], dict[str, list[float]]] = {}
+    for t in trees:
+        g = groups.setdefault((t["root_op"], t["priority"]), {})
+        for phase, secs in t["attribution"].items():
+            g.setdefault(phase, []).append(secs)
+    rows = []
+    for (op, prio), phases in sorted(groups.items()):
+        total = sum(sum(v) for v in phases.values()) or 1.0
+        for phase, vals in sorted(
+            phases.items(), key=lambda kv: -sum(kv[1])
+        ):
+            rows.append({
+                "op": op, "priority": prio, "phase": phase,
+                "n": len(vals),
+                "p50_s": _pct(vals, 0.50),
+                "p99_s": _pct(vals, 0.99),
+                "share": sum(vals) / total,
+            })
+    return rows
+
+
+def render_report(trees: list[dict], top: int = 3) -> str:
+    """The ``obs critpath`` text report: summary line, the slowest
+    trees' critical paths, then the phase-attribution table."""
+    if not trees:
+        return "no op trees (need span events with trace ids)\n"
+    cross = sum(1 for t in trees if len(t["tracks"]) > 1)
+    lines = [
+        f"{len(trees)} op tree(s), {cross} cross-rank, "
+        f"slowest {trees[0]['wall_s'] * 1e3:.3f} ms "
+        f"({trees[0]['root_op']})",
+        "",
+    ]
+    for t in trees[:top]:
+        lines.append(
+            f"-- {t['root_op']} trace={t['trace_id']:016x} "
+            f"prio={t['priority']} wall={t['wall_s'] * 1e3:.3f} ms "
+            f"spans={t['n_spans']} tracks={','.join(t['tracks'])} "
+            f"attributed={t['attributed_frac'] * 100:.1f}%"
+        )
+        for op, secs in t["critical_path"]:
+            lines.append(f"   critpath {op:<24} {secs * 1e3:9.3f} ms")
+        lines.append("")
+    hdr = (f"{'op':<16} {'prio':<6} {'phase':<24} {'n':>4} "
+           f"{'p50_ms':>9} {'p99_ms':>9} {'share':>7}")
+    lines.append(hdr)
+    lines.append("-" * len(hdr))
+    for r in phase_table(trees):
+        lines.append(
+            f"{r['op']:<16} {r['priority']:<6} {r['phase']:<24} "
+            f"{r['n']:>4} {r['p50_s'] * 1e3:>9.3f} "
+            f"{r['p99_s'] * 1e3:>9.3f} {r['share'] * 100:>6.1f}%"
+        )
+    return "\n".join(lines) + "\n"

@@ -1,0 +1,465 @@
+"""The port's copy of ``oncilla_tpu/qos/__main__.py``, line for line, with the
+imports renamed to the port's modules. Its soak runs on
+``inprocess_cluster`` (the JAX package's in-process ``local_cluster``). A
+get's bytes (a CPU tensor in the port) are compared through ``np.asarray``.
+The pressure storm runs past its handle cap until back-pressure has fired
+(within its deadline): see phase C.
+
+``python -m oncilla_tpu_torch.qos`` — the multi-tenant QoS soak harness.
+
+``--soak`` runs dozens of simulated apps (each a real
+``ControlPlaneClient`` with its own app id, QoS profile, leases and
+heartbeats) with skewed sizes and priorities against an in-process
+``inprocess_cluster``, and asserts the QoS contracts end to end:
+
+- **fairness** — every tenant that stays within its quota completes all
+  of its alloc/put/get/free rounds; nobody is starved by the hogs.
+- **quotas** — an over-quota request gets the typed ``QUOTA_EXCEEDED``
+  (and nothing is reserved for it).
+- **back-pressure** — low-priority hogs drive every arena past the high
+  watermark; REQ_ALLOC answers retryable ``BUSY`` (counted at rank 0)
+  and compliant clients absorb it with jittered backoff.
+- **priority eviction** — under that pressure the owner reapers evict
+  ACTIVE low-priority extents (observed via the eviction counters) and
+  never an active normal/high one (the invariant columns stay zero);
+  held high-priority data reads back byte-exact afterwards.
+- **drained ledger** — after tenants disconnect, every surviving rank's
+  registry, arena and OCM_ALLOCTRACE ledger are empty.
+
+With chaos enabled (default; ``--no-chaos`` opts out) the soak also
+kills a daemon mid-workload through the chaos harness while a
+replicated high-priority tenant is writing, and asserts the read after
+failover is byte-exact — QoS and failover compose.
+
+``--smoke`` bounds the scenario (fewer tenants/rounds) for CI.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import threading
+import time
+
+from oncilla_tpu_torch.qos.policy import PRIO_HIGH, PRIO_LOW, PRIO_NORMAL
+
+
+def _mk_cfg(base: dict, **over):
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    kw = dict(base)
+    kw.update(over)
+    return OcmConfig(**kw)
+
+
+class _Tenant:
+    """One simulated app: its own client (distinct app id ⇒ distinct
+    leases/quota), a seeded size distribution, and a success ledger the
+    fairness assertion reads."""
+
+    def __init__(self, idx: int, cluster, base_cfg: dict, seed: int,
+                 rounds: int):
+        import numpy as np
+
+        self.idx = idx
+        self.rank = idx % len(cluster.entries)
+        self.priority = idx % 3  # low / normal / high, round-robin
+        self.quota = 0 if self.priority == PRIO_LOW else (3 << 20)
+        self.rounds = rounds
+        self.completed = 0
+        self.error: BaseException | None = None
+        self.rng = np.random.default_rng(seed * 1000 + idx)
+        cfg = _mk_cfg(
+            base_cfg,
+            priority=self.priority,
+            quota_bytes=self.quota,
+            quota_handles=8 if self.quota else 0,
+            busy_retries=6,
+            busy_backoff_ms=20,
+        )
+        from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+
+        self.client = ControlPlaneClient(
+            cluster.entries, self.rank, config=cfg,
+            app_id=10_000 + idx,
+        )
+        with cluster._lock:
+            cluster.clients.append(self.client)
+
+    def _size(self) -> int:
+        # Skewed toward small: most tenants are mice, a few are elephants.
+        return int(self.rng.choice(
+            [64 << 10, 128 << 10, 256 << 10, 512 << 10],
+            p=[0.4, 0.3, 0.2, 0.1],
+        ))
+
+    def run_rounds(self) -> None:
+        """The fairness workload: alloc, put a seeded pattern, read it
+        back byte-exact, free — ``rounds`` times, all within quota."""
+        import numpy as np
+
+        from oncilla_tpu_torch.core.kinds import OcmKind
+
+        try:
+            for _ in range(self.rounds):
+                n = self._size()
+                h = self.client.alloc(n, OcmKind.REMOTE_HOST)
+                try:
+                    data = self.rng.integers(0, 256, n, dtype=np.uint8)
+                    self.client.put(h, data)
+                    got = self.client.get(h, n)
+                    if not np.array_equal(np.asarray(got), data):
+                        raise AssertionError(
+                            f"tenant {self.idx}: roundtrip mismatch"
+                        )
+                finally:
+                    self.client.free(h)
+                self.completed += 1
+        except BaseException as e:  # noqa: BLE001 — surfaced by the harness
+            self.error = e
+
+
+def _assert(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(f"qos soak: {msg}")
+
+
+def run_soak(seed: int, tenants_n: int, rounds: int, chaos: bool,
+             verbose: bool = False, mux: bool = False) -> dict:
+    import numpy as np
+
+    from oncilla_tpu_torch.analysis import alloctrace
+    from oncilla_tpu_torch.core.errors import OcmError, OcmRemoteError
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.resilience.chaos import ChaosController, ChaosSchedule
+    from oncilla_tpu_torch.runtime.client import ControlPlaneClient
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.runtime.protocol import ErrCode
+
+    os.environ.setdefault("OCM_ALLOCTRACE", "1")
+    alloctrace.reset()
+    arena = 24 << 20
+    base = dict(
+        host_arena_bytes=arena,
+        device_arena_bytes=4 << 20,
+        lease_s=3.0,
+        # Mux mode hosts HUNDREDS of tenants in this one process over
+        # one connection per daemon; a 0.2 s beat x 200 tenants would
+        # be pure heartbeat load, so the beat relaxes (still ≥4 beats
+        # per lease).
+        heartbeat_s=0.5 if mux else 0.2,
+        arena_high_pct=60,
+        arena_low_pct=40,
+        chunk_bytes=256 << 10,
+        dcn_stripes=2,
+        dcn_stripe_min_bytes=1 << 20,
+        detect_interval_s=0.05,
+        suspect_after=1,
+        dead_after=2,
+        probe_timeout_s=0.25,
+        mux=mux,
+    )
+    outcome: dict = {"seed": seed, "tenants": tenants_n, "mux": mux}
+    with inprocess_cluster(3, config=_mk_cfg(base)) as cl:
+        # -- phase A: fairness rounds ---------------------------------
+        tenants = [
+            _Tenant(i, cl, base, seed, rounds) for i in range(tenants_n)
+        ]
+        threads = [
+            threading.Thread(target=t.run_rounds, name=f"tenant-{t.idx}")
+            for t in tenants
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for t in tenants:
+            if t.error is not None:
+                raise AssertionError(
+                    f"qos soak: tenant {t.idx} (prio {t.priority}) failed "
+                    f"after {t.completed}/{t.rounds} rounds: "
+                    f"{type(t.error).__name__}: {t.error}"
+                ) from t.error
+        _assert(all(t.completed == t.rounds for t in tenants),
+                "a tenant was starved short of its rounds")
+        outcome["fair_rounds"] = sum(t.completed for t in tenants)
+        if verbose:
+            print(f"  fairness: {outcome['fair_rounds']} rounds across "
+                  f"{tenants_n} tenants, all complete")
+
+        # -- phase A' (mux only): fd/thread footprint + p99s ----------
+        # The acceptance pin: the WHOLE tenant fleet shares
+        # one connection per live peer (vs O(tenants x stripes) pooled
+        # sockets today), and the tail latencies of the storm are in
+        # the obs histograms (Tracer bucket counts feed
+        # ocm_op_latency_seconds_bucket).
+        if mux:
+            fp = tenants[0].client.client_footprint()
+            peers = len(cl.daemons)
+            _assert(
+                fp["sockets"] <= peers + 1,
+                f"mux fd budget blown: {fp['sockets']} client sockets "
+                f"for {peers} peers (want <= peers + 1)",
+            )
+            snap = tenants[0].client.tracer.snapshot()
+            p99s = {
+                op: st.get("p99_us")
+                for op, st in snap.items() if op.startswith("dcn_")
+            }
+            _assert(
+                any(v for v in p99s.values()),
+                "no dcn p99 recorded in the client histograms",
+            )
+            outcome["footprint"] = {
+                "sockets": fp["sockets"],
+                "threads": fp["threads"],
+                "mux": fp["mux"],
+                "p99_us": p99s,
+            }
+            if verbose:
+                print(f"  footprint: {fp['sockets']} sockets / "
+                      f"{fp['threads']} threads for {tenants_n} tenants; "
+                      f"p99_us={p99s}")
+
+        # -- phase B: quota enforcement -------------------------------
+        probe = next(t for t in tenants if t.quota)
+        held = probe.client.alloc(2 << 20, OcmKind.REMOTE_HOST)
+        try:
+            # Must be REJECTED (the assertion below) — nothing to bind.
+            probe.client.alloc(2 << 20, OcmKind.REMOTE_HOST)  # ocm-lint: allow[handle-leak-on-path]
+            raise AssertionError("qos soak: over-quota alloc was admitted")
+        except OcmRemoteError as e:
+            _assert(e.code == int(ErrCode.QUOTA_EXCEEDED),
+                    f"expected QUOTA_EXCEEDED, got code {e.code}")
+        finally:
+            probe.client.free(held)
+        outcome["quota_rejections"] = 1
+        if verbose:
+            print("  quota: over-quota alloc rejected QUOTA_EXCEEDED")
+
+        # -- phase C: pressure storm + priority eviction --------------
+        # Low-priority hogs allocate-and-hold (no quota, no puts needed:
+        # occupancy is reserved bytes) until the cluster crosses the
+        # high watermark everywhere and BUSY lands even after their
+        # retry budget. Their leases stay ACTIVE (heartbeats running),
+        # so the only way the arena recovers is the reaper's
+        # priority eviction — which must take hogs, never the active
+        # normal/high holders.
+        keeper = next(t for t in tenants if t.priority == PRIO_HIGH)
+        kn = 1 << 20
+        keep_h = keeper.client.alloc(kn, OcmKind.REMOTE_HOST)
+        keep_data = keeper.rng.integers(0, 256, kn, dtype=np.uint8)
+        keeper.client.put(keep_h, keep_data)
+
+        hogs = [t for t in tenants if t.priority == PRIO_LOW][:3]
+        _assert(hogs, "no low-priority tenants to hog with")
+        hog_handles: list[tuple[_Tenant, object]] = []
+        saw_busy_exhausted = False
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not saw_busy_exhausted:
+            for hog in hogs:
+                try:
+                    hog_handles.append(
+                        (hog, hog.client.alloc(1 << 20, OcmKind.REMOTE_HOST))
+                    )
+                except OcmRemoteError as e:
+                    if e.code == int(ErrCode.BUSY):
+                        saw_busy_exhausted = True
+                        break
+                    raise
+            if len(hog_handles) > 3 * (arena // (1 << 20)) and (
+                    cl.daemons[0].qos.counters["busy"] > 0):
+                # Safety: the JAX soak stops here whether or not BUSY has
+                # fired. The reapers (0.2 s ticks) evict a rank back to the
+                # low watermark as soon as it crosses the high one, so on
+                # a host whose allocs are slow the cap can come before all
+                # three ranks stood past the watermark at once; the storm
+                # then runs on until they do, within the deadline.
+                break
+        busy_total = cl.daemons[0].qos.counters["busy"]
+        _assert(busy_total > 0,
+                f"back-pressure never fired (busy={busy_total})")
+        # The reaper must observe pressure and evict ACTIVE low-priority
+        # extents; give it a few ticks.
+        deadline = time.monotonic() + 15.0
+        evicted_low = 0
+        while time.monotonic() < deadline:
+            evicted_low = sum(
+                d.qos.evictions[PRIO_LOW][1] + d.qos.evictions[PRIO_LOW][0]
+                for d in cl.daemons
+            )
+            if evicted_low > 0:
+                break
+            time.sleep(0.1)
+        _assert(evicted_low > 0, "no low-priority eviction under pressure")
+        for d in cl.daemons:
+            _assert(
+                d.qos.evictions[PRIO_NORMAL][1] == 0
+                and d.qos.evictions[PRIO_HIGH][1] == 0,
+                f"rank {d.rank} evicted an ACTIVE normal/high allocation",
+            )
+        got = keeper.client.get(keep_h, kn)
+        _assert(np.asarray(got).tobytes() == keep_data.tobytes(),
+                "held high-priority data corrupted by the storm")
+        keeper.client.free(keep_h)
+        for hog, h in hog_handles:
+            try:
+                hog.client.free(h)
+            except (OcmError, OSError):
+                pass  # evicted underneath us: exactly the point
+        outcome["busy_total"] = busy_total
+        outcome["evicted_low"] = evicted_low
+        if verbose:
+            print(f"  pressure: busy={busy_total}, low evictions="
+                  f"{evicted_low}, high-priority data intact")
+
+        # -- phase D: chaos — daemon kill mid-soak --------------------
+        killed_rank = -1
+        if chaos:
+            ccfg = _mk_cfg(base, replicas=2, priority=PRIO_HIGH)
+            cc = ControlPlaneClient(cl.entries, 0, config=ccfg,
+                                    app_id=20_000)
+            with cl._lock:
+                cl.clients.append(cc)
+            n = 4 << 20
+            h = cc.alloc(n, OcmKind.REMOTE_HOST)
+            _assert(h.replica_ranks != (),
+                    "replicated placement assigned no replica")
+            data = np.random.default_rng(seed).integers(
+                0, 256, n, dtype=np.uint8
+            )
+            cc.put(h, data[: n // 2], 0)
+            killed_rank = h.rank if h.rank != 0 else h.replica_ranks[0]
+            schedule = ChaosSchedule.kill_at(seed, killed_rank, op=3)
+            controller = ChaosController(schedule, cl.entries,
+                                         kill_fn=cl.kill)
+            with controller.inject():
+                step = 512 << 10
+                for off in range(n // 2, n, step):
+                    cc.put(h, data[off:off + step], off)
+                got = cc.get(h, n)
+            _assert(np.asarray(got).tobytes() == data.tobytes(),
+                    "post-kill read is not byte-exact")
+            _assert(not controller.pending(),
+                    f"chaos schedule unfired: {controller.pending()}")
+            _assert(controller.log == [(3, "kill", killed_rank)],
+                    f"unexpected chaos log {controller.log}")
+            cc.free(h)
+            outcome["chaos"] = {
+                "killed_rank": killed_rank, "log": list(controller.log),
+            }
+            if verbose:
+                print(f"  chaos: killed rank {killed_rank} mid-put, "
+                      f"failover read byte-exact")
+
+        # -- phase E: drain -------------------------------------------
+        with cl._lock:
+            clients, cl.clients = list(cl.clients), []
+        for c in clients:
+            c.close()
+        survivors = [d for d in cl.daemons if d.rank != killed_rank]
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline and any(
+            d.registry.live_count() for d in survivors
+        ):
+            time.sleep(0.1)
+        for d in survivors:
+            _assert(d.registry.live_count() == 0,
+                    f"rank {d.rank} registry not drained "
+                    f"({d.registry.live_count()} live)")
+            _assert(d.host_arena.allocator.bytes_live == 0,
+                    f"rank {d.rank} arena not drained")
+        dead_scopes = tuple(
+            s for d in cl.daemons if d.rank == killed_rank
+            for s in (d._trace_scope,
+                      d.host_arena.allocator._trace_scope)
+        )
+        leaked = [
+            r for r in alloctrace.live()
+            if not any(r.scope.startswith(s) for s in dead_scopes)
+        ]
+        _assert(not leaked,
+                f"alloctrace ledger leaked: {[r.describe() for r in leaked]}")
+        outcome["drained_ranks"] = [d.rank for d in survivors]
+    return outcome
+
+
+def main(argv=None) -> int:
+    # Host memory only: every smoke here allocates REMOTE_HOST behind
+    # in-process daemons and holds no card arena, so the CLI takes no
+    # --device (the card's path is chip_smoke.py's).
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.qos",
+        description="multi-tenant QoS soak harness",
+    )
+    ap.add_argument("--soak", action="store_true",
+                    help="run the multi-tenant soak scenario")
+    ap.add_argument("--smoke", action="store_true",
+                    help="bounded variant for CI (fewer tenants/rounds)")
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--tenants", type=int, default=None)
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--no-chaos", action="store_true",
+                    help="skip the mid-soak daemon kill")
+    ap.add_argument("--mux", action="store_true",
+                    help="run the tenant fleet over the async mux "
+                         "runtime (OCM_MUX): hundreds of tenants in "
+                         "this ONE process over one connection per "
+                         "daemon, fd budget asserted <= peers + 1")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if not (args.soak or args.smoke):
+        ap.print_help()
+        return 2
+    mux = args.mux or bool(int(os.environ.get("OCM_MUX", "0") or 0))
+    # Mux scale: the serving-scale acceptance runs >= 200 tenants in one
+    # process; the smoke keeps CI bounded but still a real multi-tenant
+    # fleet over one connection per peer.
+    if mux:
+        tenants = args.tenants or (24 if args.smoke else 200)
+        rounds = args.rounds or (2 if args.smoke else 3)
+    else:
+        tenants = args.tenants or (6 if args.smoke else 18)
+        rounds = args.rounds or (3 if args.smoke else 10)
+    label = "smoke" if args.smoke else "soak"
+    print(f"qos {label}: seed={args.seed} tenants={tenants} "
+          f"rounds={rounds} chaos={not args.no_chaos} mux={mux} ...")
+    t0 = time.monotonic()
+    try:
+        # The soak records under the flight recorder and its timeline
+        # must pass the cross-rank invariant audit (obs/audit.py) —
+        # eviction priority, fan-out-before-ack, lease termination —
+        # on top of the end-state assertions below. Audit findings
+        # raise AssertionError with the black-box path.
+        from oncilla_tpu_torch.obs import audit as obs_audit
+
+        with obs_audit.recorded(f"qos-{label}") as rec:
+            outcome = run_soak(args.seed, tenants, rounds,
+                               chaos=not args.no_chaos,
+                               verbose=args.verbose, mux=mux)
+        print(f"  flight recorder: {rec.summary()}")
+    except AssertionError as e:
+        print(f"qos {label}: FAIL — {e}", file=sys.stderr)
+        return 1
+    chaos_note = (
+        f", killed rank {outcome['chaos']['killed_rank']} mid-soak"
+        if "chaos" in outcome else ""
+    )
+    mux_note = ""
+    if "footprint" in outcome:
+        fp = outcome["footprint"]
+        mux_note = (
+            f", mux fleet: {fp['sockets']} sockets / {fp['threads']} "
+            f"threads for {tenants} tenants"
+        )
+    print(f"qos {label}: OK in {time.monotonic() - t0:.1f}s — "
+          f"{outcome['fair_rounds']} fair rounds, "
+          f"busy={outcome['busy_total']}, "
+          f"low evictions={outcome['evicted_low']}, no active "
+          f"normal/high eviction, ledger drained{chaos_note}{mux_note}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

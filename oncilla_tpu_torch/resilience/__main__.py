@@ -1,0 +1,939 @@
+"""The port's copy of ``oncilla_tpu/resilience/__main__.py``, line for line,
+with the imports renamed to the port's modules. Its scenarios run on
+``inprocess_cluster`` (the JAX package's in-process ``local_cluster``). A
+get's bytes (a CPU tensor in the port) are compared through ``np.asarray``.
+``run_scenario`` reads the re-replicated copy once the leader has counted
+the repair, not as soon as the chain names the new replica.
+
+``python -m oncilla_tpu_torch.resilience`` — chaos harness CLI.
+
+``--smoke`` runs the canonical kill-the-owner scenario end to end,
+TWICE, hardware-free, in-process:
+
+  3-daemon inprocess_cluster, OCM_REPLICAS=2, fast-detection config. A
+  client writes half its data, then a seeded chaos schedule kills the
+  owner daemon mid-workload (plus a couple of connection faults). The
+  run asserts: every subsequent get() is byte-exact via the promoted
+  replica, re-replication restores k=2 on a fresh rank, and — the
+  determinism contract — the second run with the same seed injected the
+  IDENTICAL fault interleaving (op-indexed chaos log compares equal).
+
+``--plan`` prints the generated schedule for a seed without running
+anything (what would be injected where).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from oncilla_tpu_torch.resilience.chaos import ChaosController, ChaosSchedule, Fault
+
+
+def _scenario_schedule(seed: int, owner: int) -> ChaosSchedule:
+    """Kill the owner early in the chaotic phase, with a dropped lease
+    before it and a delayed one after — enough turbulence to exercise
+    the retry ladder without drowning the log."""
+    return ChaosSchedule.kill_at(
+        seed, owner, op=4,
+        extra=(
+            Fault(op=2, action="drop"),
+            Fault(op=7, action="delay", delay_s=0.002),
+        ),
+    )
+
+
+def run_scenario(seed: int, verbose: bool = False) -> dict:
+    """One full kill-owner-mid-workload run; returns the replay record
+    (schedule + fired log + outcome) and raises on any failed check."""
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    cfg = OcmConfig(
+        host_arena_bytes=32 << 20,
+        device_arena_bytes=8 << 20,
+        heartbeat_s=0.05,
+        lease_s=5.0,
+        replicas=2,
+        detect_interval_s=0.05,
+        suspect_after=1,
+        dead_after=2,
+        probe_timeout_s=0.25,
+        dcn_stripes=2,
+        dcn_stripe_min_bytes=1 << 20,
+        chunk_bytes=256 << 10,
+    )
+    total = 4 << 20
+    half = total // 2
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, total, dtype=np.uint8)
+    with inprocess_cluster(3, config=cfg) as cl:
+        client = cl.client(0)
+        h = client.alloc(total, OcmKind.REMOTE_HOST)
+        assert h.replica_ranks, "OCM_REPLICAS=2 placement assigned no replica"
+        owner = h.rank
+        if verbose:
+            print(f"  alloc {h.alloc_id}: primary rank {owner}, "
+                  f"replicas {h.replica_ranks}")
+        client.put(h, data[:half], 0)  # calm half
+
+        schedule = _scenario_schedule(seed, owner)
+        controller = ChaosController(schedule, cl.entries, kill_fn=cl.kill)
+        with controller.inject():
+            # Chaotic half: the kill fires at a fixed logical op index
+            # while these puts (and the cluster's own background traffic)
+            # drive the lease counter.
+            step = 512 << 10
+            for off in range(half, total, step):
+                client.put(h, data[off:off + step], off)
+            got = client.get(h, total)
+        assert np.asarray(got).tobytes() == data.tobytes(), (
+            "get after owner kill is not byte-exact"
+        )
+        assert not controller.pending(), (
+            f"workload too short for schedule: {controller.pending()}"
+        )
+        promoted = h.rank
+        assert promoted != owner, "handle never failed over"
+
+        # Re-replication restores k: the promoted primary's chain grows
+        # back to 2 members, none of them the dead rank, and the fresh
+        # copy is byte-exact.
+        deadline = time.monotonic() + 20.0
+        chain = ()
+        while time.monotonic() < deadline:
+            try:
+                e = cl.daemons[promoted].registry.lookup(h.alloc_id)
+            except Exception:  # noqa: BLE001 — registry churn mid-failover
+                time.sleep(0.05)
+                continue
+            chain = e.chain
+            if len(chain) >= 2 and owner not in chain:
+                break
+            time.sleep(0.05)
+        assert len(chain) >= 2 and owner not in chain, (
+            f"re-replication never restored k=2 (chain={chain})"
+        )
+        # The primary adopts the new chain BEFORE it streams the copy
+        # (runtime/daemon.py _on_re_replicate), so the chain alone does
+        # not say the bytes landed: the leader counts the repair once the
+        # stream is done. (The JAX smoke reads the copy at once and can
+        # race the stream on a loaded host.)
+        while time.monotonic() < deadline and not any(
+                d.res_counters["rereplications"] for d in cl.daemons):
+            time.sleep(0.05)
+        new_rep = next(r for r in chain if r != promoted)
+        re = cl.daemons[new_rep].registry.lookup(h.alloc_id)
+        rep_bytes = bytes(
+            cl.daemons[new_rep].host_arena.view(re.extent)
+        )[: re.nbytes]
+        assert rep_bytes == data.tobytes(), (
+            "re-replicated copy is not byte-exact"
+        )
+        got2 = client.get(h, total)
+        assert np.asarray(got2).tobytes() == data.tobytes()
+        epoch = cl.daemons[0].epoch
+        counters = dict(cl.daemons[0].res_counters)
+    return {
+        "seed": seed,
+        "schedule": schedule,
+        "log": list(controller.log),
+        "owner": owner,
+        "promoted": promoted,
+        "chain": list(chain),
+        "epoch": epoch,
+        "counters": counters,
+    }
+
+
+def smoke(seed: int, verbose: bool = False) -> int:
+    # Every run records under the flight recorder and must pass the
+    # cross-rank invariant audit (obs/audit.py) — the timeline is
+    # checked end to end, not just the end state. A finding raises with
+    # the black-box path in the message.
+    from oncilla_tpu_torch.obs import audit as obs_audit
+
+    print(f"resilience smoke: seed={seed} run 1/2 ...")
+    with obs_audit.recorded("resilience-run1") as rec1:
+        r1 = run_scenario(seed, verbose=verbose)
+    print(f"  flight recorder: {rec1.summary()}")
+    print(f"  owner rank {r1['owner']} killed -> promoted rank "
+          f"{r1['promoted']}, chain restored to {r1['chain']}, "
+          f"epoch {r1['epoch']}")
+    print(f"  chaos log: {r1['log']}")
+    print(f"resilience smoke: seed={seed} run 2/2 (replay) ...")
+    with obs_audit.recorded("resilience-run2") as rec2:
+        r2 = run_scenario(seed, verbose=verbose)
+    print(f"  flight recorder: {rec2.summary()}")
+    print(f"  chaos log: {r2['log']}")
+    if r1["schedule"] != r2["schedule"]:
+        print("resilience smoke: FAIL — schedules differ across runs")
+        return 1
+    if r1["log"] != r2["log"]:
+        print("resilience smoke: FAIL — fault interleavings differ: "
+              f"{r1['log']} vs {r2['log']}")
+        return 1
+    if (r1["owner"], r1["promoted"]) != (r2["owner"], r2["promoted"]):
+        print("resilience smoke: FAIL — failover outcome differs")
+        return 1
+    print("resilience smoke: OK — kill-owner failover byte-exact, k "
+          "restored, identical interleaving replayed, invariant audit "
+          "clean on both timelines")
+    return 0
+
+
+# -- leader chaos smoke (control/): the cluster survives losing ANY rank,
+# -- including the coordinator itself ------------------------------------
+
+
+def _leader_cfg(**kw):
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    base = dict(
+        host_arena_bytes=32 << 20,
+        device_arena_bytes=8 << 20,
+        heartbeat_s=0.05,
+        lease_s=5.0,
+        replicas=2,
+        detect_interval_s=0.05,
+        suspect_after=1,
+        dead_after=2,
+        probe_timeout_s=0.25,
+        dcn_stripes=1,
+        chunk_bytes=256 << 10,
+        standby_masters=2,
+        failover_wait_s=15.0,
+    )
+    base.update(kw)
+    return OcmConfig(**base)
+
+
+def _wait(pred, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _wait_state_push(cl, ranks, timeout_s: float = 10.0) -> None:
+    _wait(
+        lambda: all(
+            cl.daemons[r]._master_state_raw is not None for r in ranks
+        ),
+        timeout_s, f"master-state replication to standbys {ranks}",
+    )
+
+
+def run_leader_kill(seed: int, verbose: bool = False) -> dict:
+    """Scenario 1 — kill the LEADER mid-alloc-storm. Consistent-hash
+    placement (every alloc placed at the origin, zero leader round
+    trips) + k=2 chains + 2 standby masters on a 4-rank cluster: the
+    storm keeps allocating while rank 0 dies, the lowest live standby
+    takes the lease under a bumped epoch and resumes the dead leader's
+    failover coordination, and every in-quota op reads back byte-exact.
+    """
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    cfg = _leader_cfg(placement="hash")
+    rng = np.random.default_rng(seed)
+    with inprocess_cluster(4, config=cfg) as cl:
+        client = cl.client(1)
+        handles: list = []
+        datas: list = []
+
+        def storm(n: int) -> None:
+            for _ in range(n):
+                data = rng.integers(0, 256, 192 << 10, dtype=np.uint8)
+                h = client.alloc(data.nbytes, OcmKind.REMOTE_HOST)
+                client.put(h, data, 0)
+                handles.append(h)
+                datas.append(data)
+
+        storm(4)  # calm phase
+        _wait_state_push(cl, (1, 2))
+        schedule = ChaosSchedule.kill_at(
+            seed, 0, op=6,
+            extra=(Fault(op=3, action="drop"),
+                   Fault(op=9, action="delay", delay_s=0.002)),
+        )
+        controller = ChaosController(schedule, cl.entries, kill_fn=cl.kill)
+        with controller.inject():
+            storm(10)  # the leader dies somewhere in here
+        assert not controller.pending(), (
+            f"workload too short for schedule: {controller.pending()}"
+        )
+        _wait(lambda: cl.daemons[1].is_leader, 15.0,
+              "standby rank 1 to take leadership")
+        leader = cl.daemons[1]
+        assert leader.epoch > 0, "election never bumped the epoch"
+        # Every in-quota client op completes byte-exact.
+        for h, d in zip(handles, datas):
+            got = client.get(h, d.nbytes)
+            assert np.asarray(got).tobytes() == d.tobytes(), (
+                f"alloc {h.alloc_id} not byte-exact after leader kill"
+            )
+        # The hash-placement pin: NOT ONE allocation was placed by a
+        # leader — rank 0's placement counter (and everyone else's)
+        # stayed at zero while every alloc journaled a hash_place.
+        assert all(
+            d.ldr_counters["placements"] == 0 for d in cl.daemons
+        ), "REQ_ALLOC took a leader round trip under OCM_PLACEMENT=hash"
+        placed = sum(
+            d.ldr_counters["hash_placements"] for d in cl.daemons
+        )
+        assert placed >= len(handles), (
+            f"{placed} hash placements for {len(handles)} allocs"
+        )
+        epoch = leader.epoch
+        won = leader.ldr_counters["elections_won"]
+    return {
+        "seed": seed, "schedule": schedule, "log": list(controller.log),
+        "leader": 1, "epoch": epoch, "elections_won": won,
+        "allocs": len(handles),
+    }
+
+
+def run_leader_splitbrain(seed: int, verbose: bool = False) -> dict:
+    """Scenario 2 — partition the leader from its standbys (the
+    split-brain drill): rank 0 is isolated live (inbound drops,
+    outbound refuses, probes fail) so it keeps BELIEVING it leads while
+    rank 1 is elected under a bumped epoch. On heal the deposed leader
+    learns its verdict from the PING STALE_EPOCH sentinel, fences
+    itself, and answers STALE_EPOCH to coordination traffic — it never
+    coordinates again, which is exactly what the flight recorder's
+    leader-unique invariant certifies."""
+    import numpy as np
+
+    from oncilla_tpu_torch.core.errors import OcmRemoteError
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.runtime import protocol as P
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    cfg = _leader_cfg(placement="leader")
+    rng = np.random.default_rng(seed)
+    total = 2 << 20
+    data = rng.integers(0, 256, total, dtype=np.uint8)
+    with inprocess_cluster(3, config=cfg) as cl:
+        client = cl.client(1)
+        h = client.alloc(total, OcmKind.REMOTE_HOST)
+        client.put(h, data, 0)
+        _wait_state_push(cl, (1, 2))
+        schedule = ChaosSchedule(
+            seed=seed,
+            faults=(Fault(op=4, action="isolate", rank=0),
+                    Fault(op=7, action="delay", delay_s=0.002)),
+        )
+        controller = ChaosController(
+            schedule, cl.entries,
+            isolate_fn=lambda r, on: cl.daemons[r].set_partitioned(on),
+        )
+        step = 256 << 10
+        with controller.inject():
+            # Puts drive the op counter past the isolation point; the
+            # ladder rides out the ownership churn retryably.
+            for off in range(0, total, step):
+                client.put(h, data[off:off + step], off)
+            got = client.get(h, total)
+        assert np.asarray(got).tobytes() == data.tobytes()
+        assert not controller.pending(), (
+            f"workload too short for schedule: {controller.pending()}"
+        )
+        _wait(lambda: cl.daemons[1].is_leader, 15.0,
+              "standby rank 1 to take leadership")
+        # While partitioned, the old leader still believes it leads.
+        assert cl.daemons[0].leader_rank == 0
+        # Heal: the deposed leader's next probe meets the STALE_EPOCH
+        # sentinel and it fences itself.
+        cl.daemons[0].set_partitioned(False)
+        _wait(lambda: cl.daemons[0]._fenced, 15.0,
+              "the deposed leader to fence itself after the heal")
+        # A fenced old leader answers STALE_EPOCH to coordination
+        # traffic — it must never coordinate again.
+        import socket as _socket
+
+        e0 = cl.entries[0]
+        s = _socket.create_connection((e0.connect_host, e0.port),
+                                      timeout=5.0)
+        try:
+            for m in (
+                P.Message(P.MsgType.REQ_ALLOC,
+                          {"orig_rank": 1, "pid": 999, "kind": 3,
+                           "nbytes": 4096}),
+                P.Message(P.MsgType.ADD_NODE,
+                          {"rank": 2, "host": "127.0.0.1", "port": 1,
+                           "ndevices": 1, "device_arena_bytes": 1,
+                           "host_arena_bytes": 1}),
+            ):
+                try:
+                    P.request(s, m)
+                except OcmRemoteError as err:
+                    assert err.code == int(P.ErrCode.STALE_EPOCH), (
+                        f"fenced leader answered {err.code}, not "
+                        "STALE_EPOCH"
+                    )
+                else:
+                    raise AssertionError(
+                        "fenced old leader served a coordination request"
+                    )
+        finally:
+            s.close()
+        got2 = client.get(h, total)
+        assert np.asarray(got2).tobytes() == data.tobytes()
+        epoch = cl.daemons[1].epoch
+    return {
+        "seed": seed, "schedule": schedule, "log": list(controller.log),
+        "leader": 1, "epoch": epoch,
+    }
+
+
+def run_leader_double_kill(seed: int, verbose: bool = False) -> dict:
+    """Scenario 3 — kill the leader AND an owner simultaneously: the
+    two coordinated recoveries (election, then the dead owner's
+    promotion + re-replication) stack. The standby leads, the surviving
+    replica serves byte-exact, and k is restored among the survivors."""
+    import numpy as np
+
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+
+    cfg = _leader_cfg(placement="leader")
+    rng = np.random.default_rng(seed)
+    total = 1 << 20
+    with inprocess_cluster(4, config=cfg) as cl:
+        client = cl.client(1)
+        # Find a victim handle whose whole chain avoids ranks 0 and 1:
+        # we kill 0 (the leader) + the primary, and need the replica to
+        # survive the double kill.
+        victim = None
+        vdata = None
+        keep = []
+        for _ in range(12):
+            d = rng.integers(0, 256, total, dtype=np.uint8)
+            h = client.alloc(total, OcmKind.REMOTE_HOST)
+            client.put(h, d, 0)
+            keep.append((h, d))
+            if (
+                h.rank in (2, 3) and h.replica_ranks
+                and all(r in (2, 3) for r in h.replica_ranks)
+            ):
+                victim, vdata = h, d
+                break
+        assert victim is not None, (
+            f"no chain landed wholly on ranks 2/3: "
+            f"{[(h.rank, h.replica_ranks) for h, _ in keep]}"
+        )
+        owner = victim.rank
+        _wait_state_push(cl, (1, 2))
+        schedule = ChaosSchedule(
+            seed=seed,
+            faults=(Fault(op=3, action="kill", rank=0),
+                    Fault(op=5, action="kill", rank=owner)),
+        )
+        controller = ChaosController(schedule, cl.entries, kill_fn=cl.kill)
+        with controller.inject():
+            step = 256 << 10
+            for off in range(0, total, step):
+                client.put(victim, vdata[off:off + step], off)
+            got = client.get(victim, total)
+        assert np.asarray(got).tobytes() == vdata.tobytes()
+        assert not controller.pending(), (
+            f"workload too short for schedule: {controller.pending()}"
+        )
+        _wait(lambda: cl.daemons[1].is_leader, 15.0,
+              "standby rank 1 to take leadership")
+        promoted = victim.rank
+        assert promoted not in (0, owner), "handle never failed over"
+        # k restored among the survivors.
+        deadline = time.monotonic() + 20.0
+        chain = ()
+        while time.monotonic() < deadline:
+            try:
+                e = cl.daemons[promoted].registry.lookup(victim.alloc_id)
+            except Exception:  # noqa: BLE001 — registry churn mid-repair
+                time.sleep(0.05)
+                continue
+            chain = e.chain
+            if len(chain) >= 2 and owner not in chain and 0 not in chain:
+                break
+            time.sleep(0.05)
+        assert len(chain) >= 2 and owner not in chain and 0 not in chain, (
+            f"re-replication never restored k=2 (chain={chain})"
+        )
+        epoch = cl.daemons[1].epoch
+    return {
+        "seed": seed, "schedule": schedule, "log": list(controller.log),
+        "leader": 1, "owner": owner, "promoted": promoted,
+        "chain": list(chain), "epoch": epoch,
+    }
+
+
+_LEADER_SCENARIOS = (
+    ("kill-leader-mid-alloc-storm", run_leader_kill),
+    ("leader-splitbrain-partition", run_leader_splitbrain),
+    ("kill-leader-and-owner", run_leader_double_kill),
+)
+
+
+# -- deadline chaos smoke (resilience/timebudget.py): budgets hold under
+# -- turbulence, hedges survive an owner kill, breakers open and recover,
+# -- cancels revoke server-side --------------------------------------------
+
+
+def _deadline_cfg():
+    from oncilla_tpu_torch.utils.config import OcmConfig
+
+    return OcmConfig(
+        host_arena_bytes=32 << 20,
+        device_arena_bytes=8 << 20,
+        heartbeat_s=0.05,
+        lease_s=5.0,
+        replicas=2,
+        detect_interval_s=0.05,
+        suspect_after=1,
+        dead_after=2,
+        probe_timeout_s=0.25,
+        dcn_stripes=1,
+        chunk_bytes=256 << 10,
+        failover_wait_s=10.0,
+        # The time-bounded plane under test: a 2 s default budget arms
+        # FLAG_CAP_DEADLINE on every CONNECT, 20 ms hedged replica
+        # reads, and a 2-strike breaker probing every 150 ms.
+        deadline_ms=2000,
+        hedge_ms=20,
+        breaker_threshold=2,
+        breaker_probe_ms=150,
+    )
+
+
+def run_deadline_scenario(seed: int, verbose: bool = False) -> dict:
+    """One full time-bounded-data-plane drill on a 3-daemon k=2
+    cluster; returns the replay record and raises on any failed check.
+
+    Four phases, all inside one seeded chaos controller (scheduled
+    faults are delay-only — the delay-heavy schedule — and every
+    placement-sensitive fault fires at a PROGRAM POINT via
+    ``controller.force`` with the deterministic op=-1 sentinel, so
+    lease-count jitter inside retry ladders can never shift the log):
+
+    1. budget bounds: every budgeted op resolves — success or typed
+       DEADLINE_EXCEEDED — within 1.5x its budget, through scheduled
+       delays, a serve-side stall that expires an alloc BEFORE its
+       quota is reserved, and a partitioned owner that expires a put.
+    2. hedged reads: a slow primary makes the hedge fire and win
+       byte-exact; a forced owner kill keeps every subsequent hedged
+       get byte-exact through failover.
+    3. breaker: a partitioned (sick-but-not-DEAD) rank flips OPEN after
+       two transfer failures, fails fast while open, and half-open
+       recovers after the heal.
+    4. cancel storm: an AsyncOcm tenant abandons slow allocs under
+       asyncio timeouts; the daemon revokes them server-side (cancel
+       counters move, completed allocs are unwound through the free
+       path) and every rank's registry drains.
+    """
+    import asyncio
+    import numpy as np
+
+    from oncilla_tpu_torch.core.errors import (
+        OcmDeadlineExceeded,
+        OcmRemoteError,
+    )
+    from oncilla_tpu_torch.core.kinds import OcmKind
+    from oncilla_tpu_torch.obs import journal as obs_journal
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.runtime.protocol import ErrCode, MsgType
+
+    cfg = _deadline_cfg()
+    rng = np.random.default_rng(seed)
+    bounds: list[tuple[str, str]] = []  # (what, outcome) per budgeted op
+
+    def budgeted(what: str, budget_ms: int, fn) -> str:
+        """Run one budgeted op; record outcome; enforce the 1.5x
+        resolution bound (with a 100 ms floor for scheduler jitter on
+        the 1-core container)."""
+        t0 = time.monotonic()
+        try:
+            fn()
+            outcome = "ok"
+        except OcmDeadlineExceeded:
+            outcome = "deadline"
+        except OcmRemoteError as e:
+            if e.code != int(ErrCode.DEADLINE_EXCEEDED):
+                raise
+            outcome = "deadline"
+        dt_ms = (time.monotonic() - t0) * 1e3
+        limit = max(1.5 * budget_ms, budget_ms + 100.0)
+        assert dt_ms <= limit, (
+            f"{what}: resolved in {dt_ms:.0f} ms, past 1.5x its "
+            f"{budget_ms} ms budget"
+        )
+        bounds.append((what, outcome))
+        return outcome
+
+    with inprocess_cluster(3, config=cfg) as cl:
+        client = cl.client(0)
+        schedule = ChaosSchedule.generate(
+            seed, 3, nfaults=4, span=10, actions=("delay",), protect=(),
+        )
+        controller = ChaosController(schedule, cl.entries,
+                                     kill_fn=cl.kill)
+        total = 1 << 20
+        data = rng.integers(0, 256, total, dtype=np.uint8)
+        with controller.inject():
+            # -- phase 1: budget bounds under a delay-heavy schedule --
+            h1 = client.alloc(total, OcmKind.REMOTE_HOST)
+            assert h1.replica_ranks, "k=2 placement assigned no replica"
+            owner = h1.rank
+            budgeted("calm put", 600,
+                     lambda: client.put(h1, data, 0, deadline_ms=600))
+            step = 256 << 10
+            for off in range(0, total, step):
+                budgeted(
+                    f"delayed put@{off}", 600,
+                    lambda off=off: client.put(
+                        h1, data[off:off + step], off, deadline_ms=600
+                    ),
+                )
+            # A daemon-side stall longer than the budget: the alloc is
+            # refused typed BEFORE admission can reserve quota.
+            live_before = sum(d.registry.live_count() for d in cl.daemons)
+            cl.daemons[0].serve_delay_types = frozenset(
+                {MsgType.REQ_ALLOC}
+            )
+            cl.daemons[0].serve_delay_s = 0.25
+            out = budgeted(
+                "expired alloc", 220,
+                lambda: client.alloc(64 << 10, OcmKind.REMOTE_HOST,
+                                     deadline_ms=220),
+            )
+            assert out == "deadline", "stalled alloc was not refused typed"
+            cl.daemons[0].serve_delay_s = 0.0
+            cl.daemons[0].serve_delay_types = frozenset()
+            assert sum(
+                d.registry.live_count() for d in cl.daemons
+            ) == live_before, "an expired alloc leaked into a registry"
+            # A partitioned owner (sick at the pool seam, NOT dead —
+            # probes bypass the pool) expires a put typed: the replica
+            # keeps refusing NOT_PRIMARY, the ladder clamps to the
+            # budget, nothing lands anywhere.
+            controller.force("partition", owner)
+            out = budgeted(
+                "partitioned put", 600,
+                lambda: client.put(h1, (data + 1).astype(np.uint8), 0,
+                                   deadline_ms=600),
+            )
+            assert out == "deadline", (
+                "put against a partitioned owner did not expire typed"
+            )
+            controller.force("heal", owner)
+            # The doomed put's repeated transport failures opened the
+            # owner's breaker (by design); wait out the probe window so
+            # the next get IS the half-open probe — it succeeds at the
+            # healed owner, closes the breaker, and the handle keeps
+            # its chain (no spurious repoint before the hedge phase).
+            time.sleep(cfg.breaker_probe_ms / 1e3 + 0.05)
+            got = client.get(h1, total, deadline_ms=2000)
+            assert np.asarray(got).tobytes() == data.tobytes(), (
+                "data changed across an expired partitioned put"
+            )
+            assert h1.rank == owner and h1.replica_ranks, (
+                "handle repointed during the partition window"
+            )
+
+            # -- phase 2: hedged reads, then byte-exact through a kill --
+            cl.daemons[owner].serve_delay_types = frozenset(
+                {MsgType.DATA_GET}
+            )
+            cl.daemons[owner].serve_delay_s = 0.08
+            got = client.get(h1, total, deadline_ms=2000)
+            assert np.asarray(got).tobytes() == data.tobytes(), "hedged get not byte-exact"
+            cl.daemons[owner].serve_delay_s = 0.0
+            cl.daemons[owner].serve_delay_types = frozenset()
+            hedge_evs = [e for e in obs_journal.events()
+                         if e.get("ev") == "hedge_fired"]
+            assert hedge_evs, (
+                "slow primary never fired a hedge (OCM_HEDGE_MS armed)"
+            )
+            controller.force("kill", owner)
+            for _ in range(2):
+                got = client.get(h1, total, deadline_ms=4000)
+                assert np.asarray(got).tobytes() == data.tobytes(), (
+                    "hedged get not byte-exact through the owner kill"
+                )
+            # Hedged reads ride probe clones and never repoint the
+            # shared handle; the WRITE ladder is the authoritative
+            # failover. Wait the verdict (also bars the corpse from
+            # phase 3's placements), write, and assert the repoint.
+            from oncilla_tpu_torch.resilience.detector import PeerState
+
+            _wait(
+                lambda: cl.daemons[0].detector.state(owner)
+                == PeerState.DEAD,
+                10.0, "the killed owner's DEAD verdict",
+            )
+            client.put(h1, data, 0, deadline_ms=4000)
+            promoted = h1.rank
+            assert promoted != owner, "handle never failed over"
+            got = client.get(h1, total, deadline_ms=4000)
+            assert np.asarray(got).tobytes() == data.tobytes()
+
+            # -- phase 3: breaker opens on a sick peer, half-open
+            # -- recovers after the heal --
+            survivors = [r for r in range(3) if r != owner]
+            sick = next(r for r in survivors if r != 0) \
+                if any(r != 0 for r in survivors) else survivors[0]
+            sick_handles = []
+            guard = 0
+            while len(sick_handles) < 4 and guard < 40:
+                guard += 1
+                d = rng.integers(0, 256, 64 << 10, dtype=np.uint8)
+                h = client.alloc(d.nbytes, OcmKind.REMOTE_HOST)
+                client.put(h, d, 0)
+                if h.rank == sick:
+                    sick_handles.append((h, d))
+            assert len(sick_handles) >= 4, (
+                f"placement never sited 4 primaries on rank {sick}"
+            )
+            e_sick = cl.entries[sick]
+            key = (e_sick.connect_host, e_sick.port)
+            controller.force("partition", sick)
+            for h, d in sick_handles[:3]:
+                got = client.get(h, d.nbytes, deadline_ms=2000)
+                assert np.asarray(got).tobytes() == d.tobytes(), (
+                    "replica read under an open breaker not byte-exact"
+                )
+            assert client._breaker.state(key) == "open", (
+                f"breaker never opened for {key}: "
+                f"{client._breaker.snapshot()}"
+            )
+            assert client._breaker.counters["fast_fails"] >= 1, (
+                "an OPEN breaker never failed an attempt fast"
+            )
+            controller.force("heal", sick)
+            time.sleep(cfg.breaker_probe_ms / 1e3 + 0.05)
+            h, d = sick_handles[3]
+            got = client.get(h, d.nbytes, deadline_ms=2000)
+            assert np.asarray(got).tobytes() == d.tobytes()
+            assert client._breaker.state(key) == "closed", (
+                "half-open probe never closed the breaker after the heal"
+            )
+            evs = obs_journal.events()
+            assert any(e.get("ev") == "breaker_open" for e in evs)
+            assert any(e.get("ev") == "breaker_close" for e in evs)
+
+        assert not controller.pending(), (
+            f"workload too short for schedule: {controller.pending()}"
+        )
+
+        # -- phase 4: cancel storm (AsyncOcm tenant, outside the chaos
+        # -- controller — no scheduled faults left to misplace) --
+        live_before = sum(d.registry.live_count() for d in cl.daemons)
+        victim = cl.daemons[0]
+
+        async def cancel_storm() -> int:
+            from oncilla_tpu_torch.runtime.mux import AsyncOcm
+
+            abandoned = 0
+            ocm = await AsyncOcm.open(cl.entries, rank=0, config=cfg,
+                                      app_id=77001)
+            try:
+                victim.serve_delay_types = frozenset({MsgType.REQ_ALLOC})
+                victim.serve_delay_s = 0.12
+                for _ in range(4):
+                    try:
+                        await asyncio.wait_for(
+                            ocm.alloc(64 << 10), timeout=0.03
+                        )
+                    except asyncio.TimeoutError:
+                        abandoned += 1
+                victim.serve_delay_s = 0.0
+                victim.serve_delay_types = frozenset()
+                # Let the CANCELs land, the suppressed completions be
+                # unwound through the free path, and the cancel-acks
+                # reclaim the orphan tombstones.
+                await asyncio.sleep(0.5)
+                chans = ocm.channels.live_channels()
+                assert chans, "tenant lost its mux channel"
+                assert all(len(c._orphans) == 0 for c in chans), (
+                    "revoked cancel-acks never reclaimed the orphan "
+                    f"tags: {[dict(c._orphans) for c in chans]}"
+                )
+            finally:
+                victim.serve_delay_s = 0.0
+                victim.serve_delay_types = frozenset()
+                await ocm.aclose()
+            return abandoned
+
+        abandoned = asyncio.run(cancel_storm())
+        assert abandoned >= 3, (
+            f"cancel storm abandoned only {abandoned}/4 allocs"
+        )
+        assert victim.tb_counters["cancels"] >= 3, (
+            f"daemon served {victim.tb_counters['cancels']} CANCELs "
+            "for >=3 abandoned ops"
+        )
+        assert victim.tb_counters["cancels_revoked"] >= 1, (
+            "no CANCEL actually revoked an in-flight op"
+        )
+        # Every revoked-but-completed alloc was unwound through the
+        # free path: the registries drain back to the pre-storm count.
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            if sum(
+                d.registry.live_count() for d in cl.daemons
+            ) <= live_before:
+                break
+            time.sleep(0.05)
+        live_after = sum(d.registry.live_count() for d in cl.daemons)
+        assert live_after <= live_before, (
+            f"cancelled allocs leaked: {live_after} live vs "
+            f"{live_before} before the storm"
+        )
+        tb = {r: dict(cl.daemons[r].tb_counters) for r in range(3)}
+    return {
+        "seed": seed,
+        "schedule": schedule,
+        "log": list(controller.log),
+        "outcomes": [o for _, o in bounds],
+        "owner": owner,
+        "promoted": promoted,
+        "sick": sick,
+        "abandoned": abandoned,
+        "tb": tb,
+    }
+
+
+def deadline_smoke(seed: int, verbose: bool = False) -> int:
+    """Run the time-bounded-data-plane drill TWICE under the flight
+    recorder: identical schedules and chaos logs across the replay,
+    identical budgeted-op outcomes, and a clean invariant audit — the
+    new no-ack-after-cancel-ack invariant armed — on both timelines."""
+    from oncilla_tpu_torch.obs import audit as obs_audit
+
+    print(f"deadline smoke: seed={seed} run 1/2 ...")
+    with obs_audit.recorded("deadline-run1") as rec1:
+        r1 = run_deadline_scenario(seed, verbose=verbose)
+    print(f"  flight recorder: {rec1.summary()}")
+    print(f"  chaos log: {r1['log']}")
+    print(f"  outcomes: {r1['outcomes']} (owner {r1['owner']} -> "
+          f"promoted {r1['promoted']}, breaker rank {r1['sick']}, "
+          f"{r1['abandoned']} allocs cancelled)")
+    print(f"deadline smoke: seed={seed} run 2/2 (replay) ...")
+    with obs_audit.recorded("deadline-run2") as rec2:
+        r2 = run_deadline_scenario(seed, verbose=verbose)
+    print(f"  flight recorder: {rec2.summary()}")
+    print(f"  chaos log: {r2['log']}")
+    if r1["schedule"] != r2["schedule"] or r1["log"] != r2["log"]:
+        print("deadline smoke: FAIL — fault interleavings differ: "
+              f"{r1['log']} vs {r2['log']}")
+        return 1
+    if r1["outcomes"] != r2["outcomes"]:
+        print("deadline smoke: FAIL — budgeted-op outcomes differ: "
+              f"{r1['outcomes']} vs {r2['outcomes']}")
+        return 1
+    print("deadline smoke: OK — budgets held within 1.5x under delays/"
+          "partition (typed DEADLINE_EXCEEDED, nothing reserved), "
+          "hedged reads byte-exact through an owner kill, breaker "
+          "opened and half-open-recovered, cancels revoked server-side "
+          "with registries drained, replays identical, invariant audit "
+          "clean (no-ack-after-cancel-ack armed)")
+    return 0
+
+
+def leader_smoke(seed: int, verbose: bool = False) -> int:
+    """Run every leader chaos scenario TWICE under the flight recorder:
+    each replay must fire the identical fault interleaving, converge to
+    the same leader, and pass the full invariant audit — including the
+    new leader-unique and placement-agreement checks — with zero
+    findings."""
+    from oncilla_tpu_torch.obs import audit as obs_audit
+
+    for name, fn in _LEADER_SCENARIOS:
+        print(f"leader smoke [{name}]: seed={seed} run 1/2 ...")
+        with obs_audit.recorded(f"leader-{name}-run1") as rec1:
+            r1 = fn(seed, verbose=verbose)
+        print(f"  flight recorder: {rec1.summary()}")
+        print(f"  chaos log: {r1['log']}  (leader -> rank {r1['leader']},"
+              f" epoch {r1['epoch']})")
+        print(f"leader smoke [{name}]: seed={seed} run 2/2 (replay) ...")
+        with obs_audit.recorded(f"leader-{name}-run2") as rec2:
+            r2 = fn(seed, verbose=verbose)
+        print(f"  flight recorder: {rec2.summary()}")
+        print(f"  chaos log: {r2['log']}")
+        if r1["schedule"] != r2["schedule"] or r1["log"] != r2["log"]:
+            print(f"leader smoke [{name}]: FAIL — interleavings differ: "
+                  f"{r1['log']} vs {r2['log']}")
+            return 1
+        if r1["leader"] != r2["leader"]:
+            print(f"leader smoke [{name}]: FAIL — different leaders "
+                  f"elected across replays")
+            return 1
+    print("leader smoke: OK — leader kill / split-brain partition / "
+          "leader+owner double kill all converge byte-exact, replays "
+          "identical, invariant audits clean (leader-unique + "
+          "placement-agreement included)")
+    return 0
+
+
+def main(argv=None) -> int:
+    # Host memory only: every smoke here allocates REMOTE_HOST behind
+    # in-process daemons and holds no card arena, so the CLI takes no
+    # --device (the card's path is chip_smoke.py's).
+    ap = argparse.ArgumentParser(
+        prog="python -m oncilla_tpu_torch.resilience",
+        description="chaos/failover harness",
+    )
+    ap.add_argument("--smoke", action="store_true",
+                    help="run the kill-owner scenario twice and verify "
+                         "byte-exact failover + deterministic replay")
+    ap.add_argument("--leader-smoke", action="store_true",
+                    help="run the decentralized-control-plane scenarios "
+                         "(kill leader mid-alloc-storm, split-brain "
+                         "partition, leader+owner double kill) twice "
+                         "each with deterministic replay + invariant "
+                         "audit")
+    ap.add_argument("--deadline-smoke", action="store_true",
+                    help="run the time-bounded-data-plane drill twice "
+                         "(budget bounds under delays/partition, hedged "
+                         "reads through an owner kill, breaker open/"
+                         "half-open-recover, server-side cancel storm) "
+                         "with deterministic replay + invariant audit")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the generated random schedule for --seed")
+    ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--nranks", type=int, default=3)
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.plan:
+        sched = ChaosSchedule.generate(
+            args.seed, args.nranks,
+            actions=("drop", "delay", "partition", "heal", "kill"),
+        )
+        for f in sched.faults:
+            print(f"op {f.op:>4}: {f.action}"
+                  + (f" rank {f.rank}" if f.rank >= 0 else "")
+                  + (f" ({f.delay_s}s)" if f.action == "delay" else ""))
+        return 0
+    if args.smoke and args.leader_smoke:
+        rc = smoke(args.seed, verbose=args.verbose)
+        return rc or leader_smoke(args.seed, verbose=args.verbose)
+    if args.smoke:
+        return smoke(args.seed, verbose=args.verbose)
+    if args.leader_smoke:
+        return leader_smoke(args.seed, verbose=args.verbose)
+    if args.deadline_smoke:
+        return deadline_smoke(args.seed, verbose=args.verbose)
+    ap.print_help()
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -32,8 +32,8 @@ uses it directly and serves it to the cluster (:class:`_PlaneServer`); a
 plane-less client reaches device bytes through the owner daemon, which
 relays to the registered plane.
 
-Not ported (ROADMAP A 2.6): the in-process SLO watcher (``start_slo``
-raises ``NotImplementedError``).
+``start_slo`` arms the in-process SLO watcher (:mod:`oncilla_tpu_torch.obs.slo`) over
+this client's STATUS_PROM path; its verdicts ride ``status()["slo"]``.
 """
 
 from __future__ import annotations
@@ -353,6 +353,9 @@ class ControlPlaneClient:
         # path so a sick-but-not-DEAD peer fails FAST instead of eating
         # every op's budget on full connect/transfer timeouts.
         self._breaker = timebudget.breaker_from(self.config)
+        # In-process SLO watcher (obs/slo.py): armed by start_slo(),
+        # surfaced through status()["slo"].
+        self._slo = None
         #: Wire transfers this client made (one per put/get, whatever its
         #: stripes and chunks), and their bytes.
         self.transfers = {"put": 0, "get": 0, "put_bytes": 0, "get_bytes": 0}
@@ -658,6 +661,7 @@ class ControlPlaneClient:
         (without detach) reclaims the process's allocations at that rank.
         """
         self._hb_stop.set()
+        self.stop_slo()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10.0)
         if self._mux is not None and self._mux_hb is not None:
@@ -1881,19 +1885,49 @@ class ControlPlaneClient:
             self._rank_request(rank, Message(MsgType.STATUS, {}))
         )
 
-    # -- SLO watcher ------------------------------------------------------
+    # -- SLO watcher (obs/slo.py) ----------------------------------------
+
+    def _slo_samples(self) -> list[tuple[str, str, dict, float]]:
+        """Client-local counters the daemons cannot expose, injected as
+        synthetic families into the SLO history every tick. Today: the
+        per-peer circuit breaker's opens (an availability error the
+        daemon literally cannot see — it is the peer being avoided)."""
+        if not self._breaker.enabled:
+            return []
+        opens = float(self._breaker.snapshot().get("opens", 0))
+        labels = {"rank": str(self.rank)}
+        return [(
+            "ocm_client_breaker_opens_total",
+            "ocm_client_breaker_opens_total", labels, opens,
+        )]
 
     def start_slo(self, interval_s: float | None = None):
-        """The in-process SLO watcher is not ported (ROADMAP A 2.6)."""
-        raise NotImplementedError(
-            "start_slo: the SLO watcher (obs/slo.py) is ROADMAP A 2.6, "
-            "not ported yet")
+        """Arm the in-process SLO watcher: a background scraper polls
+        every rank's STATUS_PROM through this client's existing in-band
+        path into history rings, and the burn-rate engine evaluates the
+        ``OCM_SLO`` objectives each tick. Idempotent; returns the
+        :class:`~oncilla_tpu_torch.obs.slo.SloRunner` (or None when
+        ``OCM_SLO`` disables it). Verdicts surface in ``status()["slo"]``."""
+        from oncilla_tpu_torch.obs import slo as obs_slo
+
+        if self._slo is not None:
+            return self._slo
+        cfg = self.config
+        runner = obs_slo.SloRunner.from_env(
+            self.fetch_prom, range(self.nnodes),
+            interval_s=interval_s,
+            budget_s=(cfg.deadline_ms / 1000.0) if cfg.deadline_ms > 0
+            else None,
+            extra_samples=self._slo_samples,
+        )
+        if runner is not None:
+            self._slo = runner.start()
+        return self._slo
 
     def stop_slo(self) -> None:
-        """The in-process SLO watcher is not ported (ROADMAP A 2.6)."""
-        raise NotImplementedError(
-            "stop_slo: the SLO watcher (obs/slo.py) is ROADMAP A 2.6, "
-            "not ported yet")
+        runner, self._slo = self._slo, None
+        if runner is not None:
+            runner.stop()
 
     def fetch_prom(self, rank: int | None = None) -> str:
         """A rank's Prometheus text exposition (STATUS_PROM), served
@@ -1927,6 +1961,8 @@ class ControlPlaneClient:
                 pass  # tail from a future daemon we don't understand
         f["dcn_client"] = {"transfers": self.tracer.transfers(last=32)}
         f["client"] = self.client_footprint()
+        if self._slo is not None:
+            f["slo"] = self._slo.meta()
         with self._stats_lock:
             f["transfers"] = dict(self.transfers)
         return f

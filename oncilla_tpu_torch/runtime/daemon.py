@@ -2,11 +2,22 @@
 
 The port's copy of ``oncilla_tpu/runtime/daemon.py``, line for line: only
 its imports name the port's own modules, its host arena is the port's copy
-of the JAX package's numpy arena (``runtime/hostarena.py``), and ``main``
-drops the JAX platform pin. It imports nothing of JAX and never touches
-the card: device-kind data ops are relayed to the app's plane server.
-Run it as ``python -m oncilla_tpu_torch.runtime.daemon <nodefile> --rank r``
-or in process through ``runtime/cluster.py``.
+of the JAX package's numpy arena (``runtime/hostarena.py``), ``main``
+drops the JAX platform pin, and three gaps of the JAX daemon's
+replication are closed: re-replication orders a client put's fan-out,
+framed or shm, against its stream chunks (``_on_re_replicate``,
+``_fan_out_put``; the JAX daemon can leave the new replica behind the
+put), a replica's provisioning is retried once before the chain is cut
+short (``_provision_chain``; the JAX daemon cuts it on one dropped
+connection, and nothing restores the copy until a member dies), and a
+put's fan-out reaches every member its chain names at the ack
+(``_fan_out_legs``: a member a concurrent upsert added gets its leg, and
+the last check and the ack share the registry's lock; the JAX daemon can
+ack on a chain that grew after its legs, the auditor's ``replica-ack``
+finding). It imports nothing of JAX and never touches the card:
+device-kind data ops are relayed to the app's plane server. Run it as
+``python -m oncilla_tpu_torch.runtime.daemon <nodefile> --rank r`` or in
+process through ``runtime/cluster.py``.
 
 Python reference implementation of the daemon the reference builds as
 ``bin/oncillamem`` (reference src/main.c + mem.c): thread-per-connection
@@ -28,6 +39,7 @@ connectionless, so no such window exists.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import struct
@@ -392,6 +404,11 @@ class Daemon:
         # the app goes stale.
         self._moved: dict[int, tuple[int, int, int, float]] = {}
         self._moved_lock = make_lock("daemon._moved_lock")
+        # Allocations whose bytes _on_re_replicate is streaming to a new
+        # replica, each with the lock that orders a client put's fan-out
+        # on it against each stream chunk's read and send (a fan-out the
+        # chunk overtook would leave the replica behind the put).
+        self._restreaming: dict[int, threading.Lock] = {}
         # In-flight outbound migrations (source side): alloc_id ->
         # {"dirty": [(offset, nbytes)...], "fence": bool}. Client puts
         # landing mid-stream are recorded for the pre-copy dirty passes;
@@ -2743,7 +2760,15 @@ class Daemon:
                     r = self._on_do_replica(m)
                 else:
                     e = self.entries[rr]
-                    r = self._peer_request(e.connect_host, e.port, m)
+                    try:
+                        r = self._peer_request(e.connect_host, e.port, m)
+                    except (OSError, OcmError):
+                        # One immediate retry (fresh connection), as a
+                        # put's fan-out leg gets: a transient drop must
+                        # not leave the allocation one copy short for
+                        # good (DO_REPLICA is an upsert, so a request
+                        # that did land is harmless to repeat).
+                        r = self._peer_request(e.connect_host, e.port, m)
             except (OSError, OcmError):
                 if rr == chain[0]:
                     raise  # no primary, no allocation
@@ -3336,16 +3361,8 @@ class Daemon:
             # for the pre-copy re-stream, or bounce retryably (write
             # landed but UNACKED) once the flip fence is up.
             self._note_migration_write(e.alloc_id, f["offset"], f["nbytes"])
+            # The fan-out records the client-facing ack (_fan_out_legs).
             self._fan_out_put(e, f["offset"], f["nbytes"], msg.data)
-            # Client-facing ack (never the fan-out legs themselves): the
-            # auditor pairs this against the replica_fanout recorded
-            # above — an ack with chain>1 and no prior fan-out is a
-            # durability violation.
-            obs_journal.record(
-                "put_ack", track=self.tracer.track,
-                alloc_id=e.alloc_id, offset=f["offset"],
-                nbytes=f["nbytes"], chain=len(e.chain),
-            )
         return Message(MsgType.DATA_PUT_OK, {"nbytes": f["nbytes"]})
 
     def _fan_out_put(self, e: RegEntry, offset: int, nbytes: int,
@@ -3360,12 +3377,17 @@ class Daemon:
         retry: acking a write the chain doesn't hold would silently
         break the durability contract the client asked for. Runs on the
         primary — or on a replica acting as primary once it believes the
-        primary dead (the pre-promotion window)."""
-        if not e.chain:
-            return
-        fan0 = time.monotonic() if obs_journal.enabled() else 0.0
+        primary dead (the pre-promotion window). Then records the
+        client-facing ack (``_fan_out_legs``). While the allocation
+        streams to a new replica (``_on_re_replicate``) the legs hold that
+        stream's lock: the local write has landed, and each chunk is read
+        and sent under the same lock, so no chunk of older bytes reaches
+        the new replica after the legs."""
+        fan0 = time.monotonic() if e.chain and obs_journal.enabled() else 0.0
         try:
-            self._fan_out_legs(e, offset, nbytes, data)
+            restream = self._restreaming.get(e.alloc_id)
+            with restream or contextlib.nullcontext():  # ocm-lint: allow[lock-across-rpc]
+                self._fan_out_legs(e, offset, nbytes, data)
         finally:
             if fan0:
                 # Bound to the ambient serve span (dcn_put_srv): the
@@ -3379,8 +3401,50 @@ class Daemon:
 
     def _fan_out_legs(self, e: RegEntry, offset: int, nbytes: int,
                       data) -> None:
-        for rr in e.chain:
-            if rr == self.rank or not 0 <= rr < len(self.entries):
+        # A DO_REPLICA upsert (a re-replication, a chain fixup) may grow
+        # ``e.chain`` while the legs run, so they run until every member
+        # has one. The last check and the records share set_chain's lock:
+        # no upsert lands between them, and the ack names no member the
+        # put missed.
+        done = {self.rank}
+        while True:
+            dead = {rr for rr in e.chain if self._believed_dead(rr)}
+            with self.registry._lock:
+                todo = [rr for rr in e.chain if rr not in done]
+                if not todo:
+                    self._record_put_ack(e, offset, nbytes, dead)
+                    return
+            done.update(todo)
+            self._fan_out_to(e, offset, nbytes, data, todo)
+
+    def _record_put_ack(self, e: RegEntry, offset: int, nbytes: int,
+                        dead: set[int]) -> None:
+        if len(e.chain) > 1:
+            # Every live leg landed (dead members skipped + counted):
+            # recorded BEFORE the ack, which is exactly the order the
+            # audit invariant checks.
+            obs_journal.record(
+                "replica_fanout", track=self.tracer.track,
+                alloc_id=e.alloc_id, offset=offset, nbytes=nbytes,
+                legs=sum(1 for rr in e.chain
+                         if rr != self.rank and rr not in dead),
+                skips=sum(1 for rr in e.chain
+                          if rr != self.rank and rr in dead),
+            )
+        # Client-facing ack (never the fan-out legs themselves): the
+        # auditor pairs this against the replica_fanout recorded
+        # above — an ack with chain>1 and no prior fan-out is a
+        # durability violation.
+        obs_journal.record(
+            "put_ack", track=self.tracer.track,
+            alloc_id=e.alloc_id, offset=offset,
+            nbytes=nbytes, chain=len(e.chain),
+        )
+
+    def _fan_out_to(self, e: RegEntry, offset: int, nbytes: int,
+                    data, ranks: list[int]) -> None:
+        for rr in ranks:
+            if not 0 <= rr < len(self.entries):
                 continue
             if self._believed_dead(rr):
                 self.res_counters["repl_put_skips"] += 1
@@ -3415,18 +3479,6 @@ class Daemon:
                 f"replica rank {rr} unreachable for alloc {e.alloc_id} "
                 f"({type(err).__name__}: {err}); retry after the "
                 "detector resolves it"
-            )
-        if len(e.chain) > 1:
-            # Every live leg landed (dead members skipped + counted):
-            # recorded BEFORE the caller acks, which is exactly the
-            # order the audit invariant checks.
-            obs_journal.record(
-                "replica_fanout", track=self.tracer.track,
-                alloc_id=e.alloc_id, offset=offset, nbytes=nbytes,
-                legs=sum(1 for rr in e.chain
-                         if rr != self.rank and not self._believed_dead(rr)),
-                skips=sum(1 for rr in e.chain
-                          if rr != self.rank and self._believed_dead(rr)),
             )
 
     def _on_data_get(self, msg: Message) -> Message:
@@ -3538,16 +3590,13 @@ class Daemon:
         # durability contract as a framed put (a byte the client saw
         # acked is on every live replica). Snapshot the extent window —
         # the client may already be memcpying the next transfer.
+        # The fan-out records the client-facing ack (_fan_out_legs).
         if e.chain and not msg.flags & FLAG_FANOUT:
             view = memoryview(self.host_arena.view(e.extent))
             data = bytes(view[f["offset"]:f["offset"] + f["nbytes"]])
             self._fan_out_put(e, f["offset"], f["nbytes"], data)
-        if not msg.flags & FLAG_FANOUT:
-            obs_journal.record(
-                "put_ack", track=self.tracer.track,
-                alloc_id=e.alloc_id, offset=f["offset"],
-                nbytes=f["nbytes"], chain=len(e.chain),
-            )
+        elif not msg.flags & FLAG_FANOUT:
+            self._record_put_ack(e, f["offset"], f["nbytes"], set())
         return Message(MsgType.DATA_PUT_OK, {"nbytes": f["nbytes"]})
 
     def _on_shm_get(self, msg: Message) -> Message:
@@ -3859,26 +3908,37 @@ class Daemon:
             Message(MsgType.DO_REPLICA, prov, qtail, flags=qflags),
         )
         # Adopt the chain BEFORE streaming so concurrent client puts
-        # already fan out to the target; the bulk copy then overwrites
-        # (at worst) bytes the fan-out just delivered. A put landing
-        # exactly between a chunk's read and its write can still be
-        # shadowed — docs/RESILIENCE.md records the window.
-        self.registry.set_chain(e.alloc_id, new_chain, f["epoch"])
-        chunk = min(self.config.chunk_bytes, 4 << 20)
-        view = memoryview(self.host_arena.view(e.extent))[: e.nbytes]
-        pos = 0
-        while pos < e.nbytes:
-            n = min(chunk, e.nbytes - pos)
-            self.peers.request(
-                te.connect_host, te.port,
-                Message(
-                    MsgType.DATA_PUT,
-                    {"alloc_id": e.alloc_id, "offset": pos, "nbytes": n},
-                    bytes(view[pos:pos + n]),
-                    flags=FLAG_FANOUT,
-                ),
-            )
-            pos += n
+        # already fan out to the target. A put whose fan-out runs while
+        # this alloc streams waits for the chunk in flight (read and sent
+        # under the alloc's stream lock, _fan_out_put), so no chunk holding
+        # older bytes reaches the target after a newer fan-out: the window
+        # the JAX package's daemon leaves (a put between a chunk's read and
+        # its write shadowed on the new copy) is closed here. A put that
+        # saw the alloc not streaming yet wrote before the stream read its
+        # range.
+        restream = make_lock("daemon._restream_lock")
+        self._restreaming[e.alloc_id] = restream
+        try:
+            self.registry.set_chain(e.alloc_id, new_chain, f["epoch"])
+            chunk = min(self.config.chunk_bytes, 4 << 20)
+            view = memoryview(self.host_arena.view(e.extent))[: e.nbytes]
+            pos = 0
+            while pos < e.nbytes:
+                n = min(chunk, e.nbytes - pos)
+                with restream:  # ocm-lint: allow[lock-across-rpc]
+                    self.peers.request(
+                        te.connect_host, te.port,
+                        Message(
+                            MsgType.DATA_PUT,
+                            {"alloc_id": e.alloc_id, "offset": pos, "nbytes": n},
+                            bytes(view[pos:pos + n]),
+                            flags=FLAG_FANOUT,
+                        ),
+                    )
+                pos += n
+        finally:
+            if self._restreaming.get(e.alloc_id) is restream:
+                del self._restreaming[e.alloc_id]
         for rr in new_chain[1:-1]:
             if not 0 <= rr < len(self.entries):
                 continue

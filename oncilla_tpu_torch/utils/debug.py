@@ -9,8 +9,10 @@ name, from which p50/p99 and Gbit/s are read — the counters
 (kv_store_page, kv_fetch_pages) and the daemon's serve side feed. A span
 around a device op measures its enqueue unless the op synchronises.
 Spans join the ambient trace context (:mod:`..obs.trace`) and the
-slow-op watchdog (:mod:`..obs.watchdog`) as in the JAX package; they put
-no annotation on a profiler timeline (``capture_trace`` is not ported).
+slow-op watchdog (:mod:`..obs.watchdog`) as in the JAX package. Inside
+:func:`capture_trace` (a ``torch.profiler`` session) each span is also an
+``ocm:<op>`` range on the timeline; outside one a span enters no profiler
+range at all.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 from oncilla_tpu_torch.obs import journal as _journal
@@ -115,7 +118,7 @@ class _Span:
     and hand-rolled for the hot path (see Tracer.span)."""
 
     __slots__ = ("tracer", "op", "nbytes", "ctx", "saved_ctx",
-                 "journal_on", "wall0", "t0", "rec")
+                 "annotation", "journal_on", "wall0", "t0", "rec")
 
     def __init__(self, tracer: "Tracer", op: str, nbytes: int):
         self.tracer = tracer
@@ -123,6 +126,8 @@ class _Span:
         self.nbytes = nbytes
 
     def __enter__(self):
+        cls = _ANNOTATION_CLS
+        self.annotation = cls(f"ocm:{self.op}") if cls is not None else None
         # Trace context: child of the ambient span (an inbound wire hop
         # or an enclosing local span), else a fresh root — the
         # client-side "mint a (trace_id, span_id) per logical op".
@@ -136,6 +141,8 @@ class _Span:
         self.wall0 = time.time() if self.journal_on else 0.0
         slow_us = _watchdog.threshold_us()
         self.rec = None
+        if self.annotation is not None:
+            self.annotation.__enter__()
         t0 = self.t0 = time.perf_counter()
         if slow_us > 0:
             rec = self.rec = {
@@ -150,6 +157,8 @@ class _Span:
 
     def __exit__(self, *exc) -> None:
         dt = time.perf_counter() - self.t0
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
         if self.ctx is not None:
             _trace.restore(self.saved_ctx)
         rec = self.rec
@@ -333,6 +342,51 @@ class Tracer:
                 }
                 for k, v in self._stats.items()
             }
+
+
+# ``torch.profiler.record_function`` while a capture_trace session runs,
+# else None: a span outside a capture reads this one global and enters no
+# profiler range.
+_ANNOTATION_CLS = None
+
+
+@contextmanager
+def capture_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace around a block of ocm work::
+
+        with capture_trace("/tmp/ocm-trace"):
+            ctx.put(h, data)
+            ctx.get(h)
+
+    Records CPU activity on every thread, and CUDA activity (kernels,
+    copies) when CUDA is available, then writes a Chrome trace JSON into
+    ``log_dir`` (``ocm-<pid>-<n>.trace.json``; open it in Perfetto or
+    ``chrome://tracing``). Op spans recorded through ``Tracer.span``
+    appear as ``ocm:<op>`` ranges on the timeline, around the kernels
+    they launch.
+    """
+    global _ANNOTATION_CLS
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    # Every thread: spans run on daemon, stripe and engine threads too.
+    prof = profile(activities=activities, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
+    prof.start()
+    _ANNOTATION_CLS = record_function
+    try:
+        yield
+    finally:
+        _ANNOTATION_CLS = None
+        prof.stop()
+        n = sum(1 for f in os.listdir(log_dir) if f.endswith(".trace.json"))
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"ocm-{os.getpid()}-{n}.trace.json"))
 
 
 GLOBAL_TRACER = Tracer()

@@ -5,7 +5,8 @@ Source: ``tests/test_audit.py``. Each of its tests (27 cases) is imported
 from it and collected here as a case; an autouse fixture points the names
 the source bound at the port: ``audit``, ``flightrec`` and ``journal`` are
 the port's modules, and ``obs_main`` (the JAX ``python -m oncilla_tpu.obs``
-entry) runs the port's ``audit.main`` for its ``audit`` subcommand. Nothing
+entry) is the port's (``python -m oncilla_tpu_torch.obs``), whose ``audit``
+subcommand runs ``audit.main``. Nothing
 in ``oncilla_tpu/`` or the JAX tests changes.
 
 Added here: the port's invariant registry is the JAX package's, rule for
@@ -25,6 +26,7 @@ from oncilla_tpu.obs import audit as jaudit
 from oncilla_tpu_torch.obs import audit as taudit
 from oncilla_tpu_torch.obs import flightrec as tflightrec
 from oncilla_tpu_torch.obs import journal as tjournal
+from oncilla_tpu_torch.obs.__main__ import main as tobs_main
 from test_torch_daemon import export_ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,19 +64,12 @@ RUN = [
 export_ref(globals(), src, RUN)
 
 
-def port_obs_main(argv: list[str]) -> int:
-    """The JAX CLI's ``audit`` subcommand, served by the port's entry."""
-    if not argv or argv[0] != "audit":
-        raise AssertionError(f"only the audit subcommand is ported: {argv}")
-    return taudit.main(argv[1:])
-
-
 @pytest.fixture(autouse=True)
 def _port_auditor(request, monkeypatch):
     if request.function.__module__ != src.__name__:
         return
     for name, value in (("audit", taudit), ("flightrec", tflightrec),
-                        ("journal", tjournal), ("obs_main", port_obs_main)):
+                        ("journal", tjournal), ("obs_main", tobs_main)):
         monkeypatch.setattr(src, name, value)
 
 

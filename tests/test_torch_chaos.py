@@ -89,17 +89,12 @@ def binary():
     return tcluster.build_daemon()
 
 
-_PORT_CHAOS = {"ChaosController": tchaos.ChaosController,
-               "ChaosSchedule": tchaos.ChaosSchedule, "Fault": tchaos.Fault,
-               "corrupt_file": tchaos.corrupt_file}
-
-
 @pytest.fixture(autouse=True)
 def _port_harness(request, monkeypatch):
     module = request.function.__module__
     if module == src_resilience.__name__:
         use_port_client(monkeypatch, src_resilience, alloctrace=talloctrace,
-                        snap=tsnap, **_PORT_CHAOS)
+                        snap=tsnap)
     elif module == src_native_obs.__name__:
         patch_ref(monkeypatch, src_native_obs, native=PortNative,
                   flightrec=tflightrec, audit=taudit)

@@ -40,10 +40,11 @@ import pytest
 import oncilla_tpu.core.errors as jerrors
 import oncilla_tpu.runtime.cluster as jcluster_mod
 import oncilla_tpu.runtime.daemon as jdaemon_mod
-import oncilla_tpu.runtime.pool as jpool_mod
+import oncilla_tpu.resilience.chaos as jchaos_mod
 from oncilla_tpu.runtime import membership as jmem
 from oncilla_tpu.utils.config import OcmConfig as JConfig
 import oncilla_tpu_torch.core.errors as terrors
+import oncilla_tpu_torch.resilience.chaos as tchaos_mod
 import oncilla_tpu_torch.runtime.pool as tpool_mod
 from oncilla_tpu_torch.runtime import daemon as tdaemon_mod
 from oncilla_tpu_torch.runtime import membership as tmem
@@ -160,24 +161,38 @@ class PortDaemon(tdaemon_mod.Daemon):
     _on_migrate = _direct("_on_migrate")
 
 
-def _chaos_on_both(jax_set):
-    def set_chaos_hook(fn) -> None:
-        jax_set(fn)
-        tpool_mod.set_chaos_hook(fn)
-    return set_chaos_hook
+PORT_CHAOS = {"ChaosController": tchaos_mod.ChaosController,
+              "ChaosSchedule": tchaos_mod.ChaosSchedule,
+              "Fault": tchaos_mod.Fault, "corrupt_file": tchaos_mod.corrupt_file}
+
+
+def use_port_chaos(monkeypatch, *modules) -> None:
+    """Point a JAX test's fault injection at the port's chaos harness,
+    which hooks the port's connection pool (the one the port's daemons
+    and client dial through): the JAX chaos module's classes (for a test
+    that imports them inside its body), the names each module given bound
+    and its ``pool_mod``. A JAX client's own legs go through the JAX pool,
+    which no port hook reaches, so a test that counts client legs also
+    needs the port's client (``test_torch_mux.use_port_client``)."""
+    for name, value in PORT_CHAOS.items():
+        monkeypatch.setattr(jchaos_mod, name, value)
+    monkeypatch.setattr(tpool_mod, "_chaos_hook", None)
+    for m in modules:
+        for name, value in PORT_CHAOS.items():
+            if hasattr(m, name):
+                monkeypatch.setattr(m, name, value)
+        if hasattr(m, "pool_mod"):
+            monkeypatch.setattr(m, "pool_mod", tpool_mod)
 
 
 def use_port_daemon(monkeypatch, *modules) -> None:
     """Put :class:`PortDaemon` in place of the JAX ``Daemon`` in the JAX
     cluster, the JAX daemon module (which ``elastic.join`` imports it
-    from) and each module given that bound the name. The JAX pool's chaos
-    hook is process-wide, so it fires on daemon legs too; here it is set
-    on the port's pool as well, which the port's daemons dial through."""
+    from) and each module given that bound the name, and the port's chaos
+    harness in place of the JAX one (:func:`use_port_chaos`)."""
     monkeypatch.setattr(jcluster_mod, "Daemon", PortDaemon)
     monkeypatch.setattr(jdaemon_mod, "Daemon", PortDaemon)
-    monkeypatch.setattr(jpool_mod, "set_chaos_hook",
-                        _chaos_on_both(jpool_mod.set_chaos_hook))
-    monkeypatch.setattr(tpool_mod, "_chaos_hook", None)
+    use_port_chaos(monkeypatch, *modules)
     for m in modules:
         if hasattr(m, "Daemon"):
             monkeypatch.setattr(m, "Daemon", PortDaemon)

@@ -25,6 +25,10 @@ Pointed at the port:
   port's daemons keep.
 - ``test_qos.py``'s ``LoadAware`` is the port's class, which the port's
   daemons place with.
+- Faults are injected by the port's chaos harness
+  (``test_torch_daemon.use_port_chaos``); ``test_resilience.py``'s
+  chaos-replay test, which counts the client's own legs, runs the port's
+  client (``test_torch_mux.use_port_client``).
 - Errors raised by ``start``, ``_lookup_serving`` and ``_on_migrate``
   when a test calls them directly come back as the JAX classes of the same
   name, message and attributes (``test_torch_daemon.jax_error``).
@@ -39,6 +43,7 @@ from oncilla_tpu_torch.analysis import alloctrace as talloctrace
 from oncilla_tpu_torch.obs import journal as tjournal
 from oncilla_tpu_torch.qos.loadaware import LoadAware as TLoadAware
 from test_torch_daemon import export_ref, patch_ref
+from test_torch_mux import use_port_client
 
 RUN_RESILIENCE = [
     "test_dead_verdict_evicts_pooled_connections",
@@ -89,7 +94,15 @@ _PATCHES = {
 }
 
 
+# Counts the client's own legs at the pool seam, where only the port's
+# chaos harness is installed: the port's client dials through that seam.
+_PORT_CLIENT = {"test_chaos_replay_identical_interleaving"}
+
+
 @pytest.fixture(autouse=True)
 def _port_daemon(request, monkeypatch):
     src, names = _PATCHES[request.function.__module__]
-    patch_ref(monkeypatch, src, **names)
+    if request.function.__name__ in _PORT_CLIENT:
+        use_port_client(monkeypatch, src, **names)
+    else:
+        patch_ref(monkeypatch, src, **names)

@@ -19,8 +19,11 @@ them.
 
 Pointed at the port:
 
-- ``test_mux.py``'s chaos test reads the JAX client's ledger, as in its
-  source; the port's daemons' ledger is not read there.
+- Faults are injected by the port's chaos harness
+  (``test_torch_daemon.use_port_chaos``; ``test_mux.py``'s relay-delay
+  hook is set on the port's pool). ``test_mux.py``'s chaos test, which
+  counts the client's own legs, runs the port's client
+  (``test_torch_mux.use_port_client``).
 - Errors raised by ``start``, ``_lookup_serving`` and ``_on_migrate``
   when a test calls them directly come back as the JAX classes of the same
   name, message and attributes (``test_torch_daemon.jax_error``).
@@ -31,6 +34,7 @@ import pytest
 import test_elastic as src_elastic
 import test_mux as src_mux
 from test_torch_daemon import export_ref, patch_ref
+from test_torch_mux import use_port_client
 
 RUN_ELASTIC = [
     "test_req_join_assigns_next_rank_and_dedups_retries",
@@ -69,7 +73,15 @@ _PATCHES = {
 }
 
 
+# Counts the client's own legs at the pool seam, where only the port's
+# chaos harness is installed: the port's client dials through that seam.
+_PORT_CLIENT = {"test_mux_concurrent_tenants_chaos_kill_owner"}
+
+
 @pytest.fixture(autouse=True)
 def _port_daemon(request, monkeypatch):
     src, names = _PATCHES[request.function.__module__]
-    patch_ref(monkeypatch, src, **names)
+    if request.function.__name__ in _PORT_CLIENT:
+        use_port_client(monkeypatch, src, **names)
+    else:
+        patch_ref(monkeypatch, src, **names)

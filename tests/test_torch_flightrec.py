@@ -7,7 +7,8 @@ source bound (``audit``, ``flightrec``, ``journal``) at the port's modules,
 puts the port's ``Daemon`` in place (``test_torch_daemon.patch_ref``: the
 JAX cluster's daemons are the port's, so their kill spills the port's ring)
 and the port's ``ChaosController``/``ChaosSchedule`` where the source
-imports them from (``oncilla_tpu.resilience.chaos``). Nothing in
+imports them from (``oncilla_tpu.resilience.chaos``, by
+``test_torch_daemon.use_port_chaos``). Nothing in
 ``oncilla_tpu/`` or the JAX tests changes.
 
 Added here:
@@ -38,12 +39,10 @@ import test_flightrec as src
 from oncilla_tpu.obs import audit as jaudit
 from oncilla_tpu.obs import flightrec as jflightrec
 from oncilla_tpu.obs import journal as jjournal
-from oncilla_tpu.resilience import chaos as jchaos
 from oncilla_tpu_torch.core.kinds import OcmKind
 from oncilla_tpu_torch.obs import audit as taudit
 from oncilla_tpu_torch.obs import flightrec as tflightrec
 from oncilla_tpu_torch.obs import journal as tjournal
-from oncilla_tpu_torch.resilience import chaos as tchaos
 from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
 from oncilla_tpu_torch.utils.config import OcmConfig
 from test_torch_daemon import export_ref, patch_ref
@@ -78,8 +77,6 @@ def _port_recorder(request, monkeypatch):
         return
     patch_ref(monkeypatch, src, audit=taudit, flightrec=tflightrec,
               journal=tjournal)
-    monkeypatch.setattr(jchaos, "ChaosController", tchaos.ChaosController)
-    monkeypatch.setattr(jchaos, "ChaosSchedule", tchaos.ChaosSchedule)
 
 
 # -- the repro: OCM_FLIGHTREC set, a kill recorded and the ring spilled ----

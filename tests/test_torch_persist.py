@@ -32,7 +32,6 @@ import oncilla_tpu_torch as tocm
 import test_persist as src
 from oncilla_tpu.core import errors as jerrors
 from oncilla_tpu.persist import FrozenStore as JFrozen
-from oncilla_tpu.resilience import chaos as jchaos
 from oncilla_tpu.serving import tiers as jtiers
 from oncilla_tpu.serving.engine import Request as JRequest
 from oncilla_tpu.serving.engine import ServingEngine as JEngine
@@ -81,8 +80,6 @@ def _port_frozen(request, monkeypatch):
                 and hasattr(jerrors, name):
             monkeypatch.setattr(src, name, getattr(terrors, name))
     monkeypatch.setattr(jtiers, "Tier", Tier)
-    for name in ("ChaosController", "ChaosSchedule", "Fault"):
-        monkeypatch.setattr(jchaos, name, getattr(tchaos, name))
 
 
 # -- the store against the JAX store ------------------------------------------
