@@ -28,7 +28,7 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    launch counters must rise.
 5. serving — Llama-3-8B geometry (bf16, seeded random weights on the card):
    2 paged-decode requests through ``BucketedPagedDecoder`` (LOCAL_DEVICE
-   pages of 128 tokens, refetch), each 512 teacher-forced prompt tokens
+   pages of 128 tokens, refetch), each 256 teacher-forced prompt tokens
    then 128 greedy tokens; launch counts must show every page put and
    every page re-read went through the kernels; logits and greedy tokens
    are held against the unpaged ``decode_step``; tokens/s of the plain,
@@ -218,6 +218,22 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    of other work, each returning 0 on its OK line: ``resilience --smoke``,
    ``--leader-smoke`` and ``--deadline-smoke``, ``obs --smoke``, ``obs slo
    --selftest``, ``elastic --smoke``, ``qos --smoke``, ``fabric --smoke``.
+5m. moe — the MoE family on the serving path, right after 8f once the
+   Llama weights are freed: ``MoeConfig.mixtral_8x7b()`` (dim 4096, 32
+   heads, 8 KV heads, ffn 14336, 8 experts, top-2, capacity factor 1.25,
+   vocab 32000, bf16) cut to 8 of its 32 layers (23.75 GB of seeded
+   weights made on the card), one request of a 256-token seeded prompt and
+   128 greedy tokens over 128-token pages of 4 MiB, REMOTE_DEVICE on two
+   in-process daemons' rows: (a) unpaged ``moe.generate`` and the
+   teacher-forced ``decode_loop``; (b) ``PagedDecoder`` and (c)
+   ``BucketedPagedDecoder(refetch=True)`` with ``moe.paged_hooks``, their
+   logits and tokens (a)'s bit for bit; (d) the same decoder's
+   ``step_page`` eager, held to (a) by its rows (90 % of the tokens agree,
+   the median row's logits within 0.25), and through ``StepGraphs``, the
+   eager run's bit for bit with one graph a context bucket; K1/K2 launches
+   the pages stored/fetched; tokens/s beside the dense dispatch's and a
+   sparse top-2 gather's weight-byte bounds; the weights freed before
+   phase 6.
 
 9. train — last, with nothing of the earlier phases on the card: the JAX
    package's training flagship (``benchmarks/mfu.train_sized_config``:
@@ -3832,6 +3848,278 @@ def phase_observed(device, cfg, params, *, ref: dict, seed: int = HARNESS_SEED,
     return report
 
 
+# -- phase 5m ---------------------------------------------------------------
+
+# Mixtral-8x7B at its published widths, its depth cut to 8 of 32 layers:
+# the 32 layers' bf16 weights (93.4 GB) exceed the card's 80 GB, 8 hold
+# 23.75 GB (2.90 GB a layer, 2.82 of it the experts, plus 0.52 GB of
+# embedding and head). One request: a 256-token seeded prompt, then 128
+# greedy tokens, all consumed, over 128-token pages of 4 MiB (at or above
+# the 1 MiB at which an arena move is K1/K2; a 16-token page, 512 KiB,
+# would miss the kernels), REMOTE_DEVICE on two in-process daemons' rows.
+MOE_LAYERS = 8
+MOE_PROMPT, MOE_GEN = 256, 128
+MOE_PAGE_TOKENS = 128
+MOE_ROW = 64 * MiB
+MOE_SEED = 14
+
+
+def moe_token_bytes(cfg) -> dict:
+    """Weight bytes one MoE decode token must read (the KV history, at
+    most 12.6 MB here, left out): the dense dispatch reads every expert of
+    every layer, a sparse gather of the top-k experts only k of them; both
+    read attention, router, norms, an embedding row and the head."""
+    from oncilla_tpu_torch.models.llama import torch_dtype
+
+    b = torch_dtype(cfg.dtype).itemsize
+    L, D, Hd = cfg.n_layers, cfg.dim, cfg.head_dim
+    shared = (L * D * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * Hd * b
+              + L * D * cfg.n_experts * b + (2 * L + 1) * D * 4
+              + D * b + D * cfg.vocab * b)
+    expert = 3 * D * cfg.ffn_hidden * b
+    return {"dense": shared + L * cfg.n_experts * expert,
+            "sparse": shared + L * cfg.top_k * expert}
+
+
+def _buckets(npages: int) -> int:
+    """Context shapes a decoder meets over ``npages`` page boundaries
+    (``kv_paging.bucket_context``): one graph each."""
+    return len({p if p <= 1 else 1 << (p - 1).bit_length()
+                for p in range(npages)})
+
+
+# The masked fixed-shape step (``paged_token_step``, what a graph captures)
+# attends over the padded tail and context where the unpaged decode slices
+# the valid keys, so its bf16 activations part from (a)'s in low bits; an
+# expert whose router score sits within those bits of the next one's then
+# flips, and that moves the token's logits by far more than the dense
+# family's margin rule allows. A wrong page moves every row after it; a
+# flip moves the rows of one token's routing. So the masked step is held
+# to (a) by the share of rows whose tokens agree and by the median row's
+# largest logit difference.
+MOE_TOKENS_AGREE = 0.9
+
+
+def _moe_rows_check(ref: torch.Tensor, got: torch.Tensor, prompt_len: int) -> dict:
+    """Every generated row (teacher-forced on (a)'s ids, so each row has
+    (a)'s context): the share whose greedy tokens agree, the median and
+    largest of the rows' largest logit difference, and where they part
+    (with the reference's top-2 margin there)."""
+    a, b = ref[prompt_len - 1:], got[prompt_len - 1:]
+    diff = (a - b).abs().amax(dim=-1)
+    agree = a.argmax(-1) == b.argmax(-1)
+    top2 = torch.topk(a, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    part = (~agree).nonzero().flatten().tolist()
+    return {"rows": a.shape[0], "tokens_agree": int(agree.sum()),
+            "median_row_diff": float(diff.median()),
+            "max_abs_logit_diff": float(diff.max()),
+            "rows_differ": int((diff > 0).sum()),
+            "splits": [{"pos": prompt_len - 1 + i, "top2_margin": float(margin[i]),
+                        "logit_diff": float(diff[i])} for i in part]}
+
+
+def _hold_moe_rows(what: str, d: dict) -> None:
+    """Raise unless at least :data:`MOE_TOKENS_AGREE` of the rows' tokens
+    agree and the median row differs by at most :data:`MARGIN_MAX_DIFF`."""
+    if (d["tokens_agree"] < MOE_TOKENS_AGREE * d["rows"]
+            or d["median_row_diff"] > MARGIN_MAX_DIFF):
+        raise AssertionError(f"{what}: tokens or logits part from the unpaged "
+                             f"decode past the rule's limits: {d}")
+
+
+def phase_moe(device, cfg, params, *, prompt_len: int = MOE_PROMPT,
+              n_gen: int = MOE_GEN, page_tokens: int = MOE_PAGE_TOKENS,
+              row_bytes: int = MOE_ROW, rate: float | None = None,
+              check_launches: bool = True) -> dict:
+    """Phase 5m: MoE decode at Mixtral width through the paged decoders.
+
+    (a) the references: unpaged ``moe.generate`` (prompt, then ``n_gen``
+    greedy tokens) and the teacher-forced ``decode_loop(step_fn=
+    moe.decode_step)`` over the consumed ids, whose greedy tokens must be
+    generate's; then, with ``moe.paged_hooks(cfg)`` and REMOTE_DEVICE pages
+    placed by two in-process daemons on an ``IciDataPlane`` of four rows on
+    the card, (b) ``PagedDecoder`` and (c) ``BucketedPagedDecoder(refetch=
+    True)`` stepped a token at a time (greedy after the prompt): logits at
+    every position and tokens equal (a)'s bit for bit; (d) the same
+    decoder's ``step_page``, teacher-forced on (a)'s ids, first with its
+    token steps eager (``bucketed_pages``: the masked fixed-shape step,
+    held to (a) by :func:`_hold_moe_rows`), then through a ``StepGraphs``
+    (``bucketed_graphs``: one captured step a context bucket, at most the
+    buckets, its logits the eager run's bit for bit). In every mode the
+    pages stored and fetched are the plane's puts and gets, each one
+    K1/K2 launch. Prints tokens/s and ms a token for each mode beside the
+    bounds of the dense dispatch's and a sparse top-k gather's weight
+    bytes at ``rate``."""
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.core.hbm import _PALLAS_IO_MIN
+    from oncilla_tpu_torch.models import kv_paging, llama, moe
+    from oncilla_tpu_torch.models.graphs import StepGraphs
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.ops.ici import IciDataPlane
+    from oncilla_tpu_torch.runtime.cluster import inprocess_cluster
+    from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    n = prompt_len + n_gen
+    npages = n // page_tokens
+    page = kv_paging.page_bytes(cfg, page_tokens, cfg.dtype)
+    if on_card and page < _PALLAS_IO_MIN:
+        raise AssertionError(f"a {page} B page is below the kernels' "
+                             f"{_PALLAS_IO_MIN} B threshold")
+    hooks = moe.paged_hooks(cfg)
+    prompt = torch.from_numpy(np.random.default_rng(MOE_SEED).integers(
+        0, cfg.vocab, prompt_len)).to(device)
+    tb = moe_token_bytes(cfg)
+    bounds = ({k: v / rate * 1e3 for k, v in tb.items()} if rate else {})
+    report = {"layers": cfg.n_layers, "page_bytes": page, "pages": npages,
+              "token_bytes": tb, "bound_ms": bounds, "modes": {}}
+    launches = {k: 0 for k in dma.launches()}
+    log(f"[moe] {cfg.n_layers} layers dim {cfg.dim}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}, page {page} B; weight bytes a token: dense "
+        f"{tb['dense']}, sparse {tb['sparse']}; bounds {bounds}")
+
+    # (a) the unpaged references.
+    rcfg = dataclasses.replace(cfg, max_seq=n)
+    t = time.perf_counter()
+    gen, _ = moe.generate(params, prompt[None], llama.make_kv_cache(
+        rcfg, 1, device=device), cfg, n_gen)
+    sync()
+    gen_s = time.perf_counter() - t
+    ids = torch.cat([prompt, gen[0]])
+    t = time.perf_counter()
+    with torch.no_grad():
+        ref, _ = llama.decode_loop(params, ids[None], llama.make_kv_cache(
+            rcfg, 1, device=device), cfg, step_fn=moe.decode_step)
+    sync()
+    loop_s = time.perf_counter() - t
+    ref = ref[0]
+    if ref.shape != (n, cfg.vocab) or not torch.isfinite(ref).all():
+        raise AssertionError(f"reference logits malformed: {tuple(ref.shape)}")
+    if not torch.equal(llama.greedy(ref[prompt_len - 1:n - 1]), gen[0]):
+        raise AssertionError("generate's tokens are not the teacher-forced "
+                             "decode's greedy tokens")
+    for name, s in (("generate", gen_s), ("decode_loop", loop_s)):
+        report["modes"][name] = {"seconds": s, "tok_s": n / s,
+                                 "ms_per_token": s / n * 1e3}
+    log(f"[moe] (a) generate {gen_s:.3f} s, decode_loop {loop_s:.3f} s over "
+        f"{n} tokens")
+
+    def stepped(dec):
+        """Prompt teacher-forced, then greedy: (consumed ids, logits)."""
+        got, rows = list(prompt.view(-1, 1)), []
+        for t in range(n):
+            lg = dec.step(got[t])
+            rows.append(lg)
+            if t + 1 >= prompt_len and len(got) < n:
+                got.append(llama.greedy(lg))
+        return torch.cat(got), torch.cat(rows)
+
+    def paged(dec):
+        """(d): every page through ``step_page``, teacher-forced on (a)."""
+        return ids, torch.cat([dec.step_page(ids[None, p * page_tokens:
+                                                 (p + 1) * page_tokens])[0]
+                               for p in range(npages)])
+
+    cl_cfg = ocm.OcmConfig(device_arena_bytes=row_bytes,
+                           host_arena_bytes=16 * MiB)
+    with inprocess_cluster(2, config=cl_cfg, ndevices=2) as cl:
+        plane = IciDataPlane(ocm.OcmConfig(device_arena_bytes=row_bytes),
+                             devices=[device] * 4, devices_per_rank=2)
+        ctx = cl.context(0, ici_plane=plane, device=device)
+        kw = dict(batch=1, page_tokens=page_tokens, kind=OcmKind.REMOTE_DEVICE,
+                  dtype=cfg.dtype, **hooks)
+        outs = {}
+        fetched_all = npages * (npages + 1) // 2
+
+        def bucketed(graphs=None):
+            return kv_paging.BucketedPagedDecoder(params, cfg, ctx, refetch=True,
+                                                  graphs=graphs, **kw)
+
+        def eager(dec):
+            dec.graphs = None  # step_page's token steps run eagerly
+            return dec
+
+        modes = (  # name, decoder, drive, pages fetched, held against
+            ("paged", lambda g: kv_paging.PagedDecoder(params, cfg, ctx, **kw),
+             stepped, 0, "a"),
+            ("bucketed", lambda g: bucketed(), stepped, fetched_all, "a"),
+            ("bucketed_pages", lambda g: eager(bucketed()), paged, fetched_all,
+             "a_moe"),
+            ("bucketed_graphs", bucketed, paged, fetched_all, "bucketed_pages"),
+        )
+        for name, make, drive, want_fetched, against in modes:
+            graphs = StepGraphs(params, cfg) if name == "bucketed_graphs" else None
+            moves0 = [GLOBAL_TRACER.stats(s).count for s in ("ici_put", "ici_get")]
+            dma.reset_launches()
+            t = time.perf_counter()
+            with torch.no_grad():
+                dec = make(graphs)
+                got_ids, got = drive(dec)
+                shipped = len(dec.cache.pages)
+                dec.close()
+            sync()
+            seconds = time.perf_counter() - t
+            rose = dma.launches()
+            for k, v in rose.items():
+                launches[k] += v
+            stored, fetched = (GLOBAL_TRACER.stats(s).count - m
+                               for s, m in zip(("ici_put", "ici_get"), moves0))
+            r = {"seconds": seconds, "tok_s": n / seconds,
+                 "ms_per_token": seconds / n * 1e3, "pages": shipped,
+                 "page_stores": stored, "page_fetches": fetched,
+                 "launches": {k: v for k, v in rose.items() if v}}
+            if shipped != npages or (stored, fetched) != (npages, want_fetched):
+                raise AssertionError(
+                    f"{name}: {shipped} pages shipped, {stored} stored and "
+                    f"{fetched} fetched on the plane, want {npages}, {npages} "
+                    f"and {want_fetched}")
+            if check_launches and (rose["write_rows"], rose["read_rows"]) != (
+                    stored, fetched):
+                raise AssertionError(f"{name}: launches {rose}, want "
+                                     f"write_rows, read_rows = {stored}, {fetched}")
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: logits malformed")
+            if against == "a_moe":
+                r["vs_unpaged"] = _moe_rows_check(ref, got, prompt_len)
+                _hold_moe_rows(name, r["vs_unpaged"])
+            else:
+                want = ref if against == "a" else outs[against]
+                if not torch.equal(got_ids, ids):
+                    raise AssertionError(f"{name}: tokens differ from {against}'s")
+                if not torch.equal(got, want):
+                    err = float((got - want).abs().max())
+                    raise AssertionError(f"{name}: logits differ from {against}'s "
+                                         f"(max |d| {err})")
+                r["vs_" + ("unpaged" if against == "a" else against)] = "bits"
+            outs[name] = got
+            if graphs is not None:
+                g = r["graphs"] = {"keys": len(graphs.steps),
+                                   "captured": graphs.captured,
+                                   "capture_s": graphs.capture_s,
+                                   "buckets": _buckets(npages)}
+                graphs.close()
+                if g["keys"] > g["buckets"] or (on_card and g["captured"]
+                                                != g["keys"]):
+                    raise AssertionError(f"{name}: graphs {g}, want one "
+                                         "captured graph a context bucket")
+            if bounds:
+                r["bound_share"] = {k: v / r["ms_per_token"]
+                                    for k, v in bounds.items()}
+            report["modes"][name] = r
+            log(f"[moe] {name}: {json.dumps(r)}")
+        ctx.tini()
+        if any(d.registry.live_count() for d in cl.daemons):
+            raise AssertionError("pages left on the daemons after close")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[moe] launches {launches}; phase {report['seconds']:.3f} s")
+    return report
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -4231,7 +4519,7 @@ def main(argv=None) -> int:
         print("usage: python3 chip_smoke.py [--across-cards]", file=sys.stderr)
         return 2
     from oncilla_tpu_torch.benchmarks.mfu import train_sized_config
-    from oncilla_tpu_torch.models import llama
+    from oncilla_tpu_torch.models import llama, moe
     from oncilla_tpu_torch.models.kv_paging import page_bytes
     from oncilla_tpu_torch.ops import dma
 
@@ -4268,9 +4556,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     params = llama.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
+    # 256 + 128 tokens a request (3 pages) and 256 kv_decode tokens: at
+    # 512 + 128 and 384 the phase took 312-355 s and the script 1040-1063 s
+    # of its 1200 once phase 5m came in.
     serving = phase_serving(
         device, cfg, params, n_requests=N_REQUESTS,
-        prompt_len=512, n_gen=128, page_tokens=PAGE_TOKENS, bench_tokens=384,
+        prompt_len=256, n_gen=128, page_tokens=PAGE_TOKENS, bench_tokens=256,
     )
     log(f"[serving] phase {time.perf_counter() - t:.3f} s")
 
@@ -4300,6 +4591,21 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # Phase 5m: the MoE family at Mixtral width, its weights made on the
+    # card after the dense ones are gone and freed before phase 6's rows.
+    t = time.perf_counter()
+    mcfg = dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), n_layers=MOE_LAYERS)
+    mparams = moe.init_moe_params(
+        mcfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t
+    moe_r = phase_moe(device, mcfg, mparams, rate=card["hbm_rate"])
+    moe_r["init_s"] = init_s
+    del mparams
+    torch.cuda.empty_cache()
+    log(f"[moe] weights {init_s:.3f} s; phase with them "
+        f"{time.perf_counter() - t:.3f} s")
+
     t = time.perf_counter()
     fab = phase_fabric(
         device, row_bytes=2 * GiB - BLOCK,
@@ -4327,7 +4633,7 @@ def main(argv=None) -> int:
                  # bench cells in phase 7's serving stage).
                  "harness": {k: v + bench["launches_serving"].get(k, 0)
                              for k, v in harness["launches"].items()},
-                 "observed": observed["launches"],
+                 "observed": observed["launches"], "moe": moe_r["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
@@ -4397,6 +4703,9 @@ def main(argv=None) -> int:
             "cells", "launches", "slo", "export", "critpath", "profiler", "cli",
             "tok_s", "tok_s_unobserved", "host_us_k1", "host_us_k1_phase3",
             "clis", "drained_ranks", "seconds", "seconds_by")},
+        "moe": {k: moe_r[k] for k in (
+            "layers", "page_bytes", "pages", "token_bytes", "bound_ms", "modes",
+            "launches", "init_s", "seconds")},
         "engine_shipped_vs_c": engine["shipped_vs_c"],
         "copy_bench": {k: detail[k] for k in (
             "copy_loop_gbps_s2", "copy_loop_gbps_s4", "remote_loop_gbps",

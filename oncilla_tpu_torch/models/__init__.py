@@ -1,9 +1,9 @@
-"""Model-side public surface: the Llama family, KV paging, dense training
-on one device and the checkpoint, mirroring
+"""Model-side public surface: the Llama and MoE families, KV paging, dense
+training on one device and the checkpoint, mirroring
 ``oncilla_tpu/models/__init__.py``'s exports for what the port has.
 
 Attribute access is lazy (PEP 562); submodules (``models.llama``,
-``models.kv_paging``, ``models.graphs``, ``models.optim``,
+``models.moe``, ``models.kv_paging``, ``models.graphs``, ``models.optim``,
 ``models.train``, ``models.checkpoint``) stay importable directly.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 _EXPORTS = {
     "LlamaConfig": "llama",
     "init_params": "llama",
+    "init_from_spec": "llama",
     "init_params_host": "llama",
     "params_from_jax": "llama",
     "forward": "llama",
@@ -24,6 +25,9 @@ _EXPORTS = {
     "generate": "llama",
     "make_kv_cache": "llama",
     "sample_token": "llama",
+    "MoeConfig": "moe",
+    "init_moe_params": "moe",
+    "paged_hooks": "moe",
     "adamw": "optim",
     "opt_state_from_jax": "optim",
     "make_train_state": "train",
@@ -40,6 +44,7 @@ _EXPORTS = {
     "paged_decode_batch_step": "kv_paging",
     "paged_decode_page": "kv_paging",
     "paged_generate_page": "kv_paging",
+    "hooked_step": "kv_paging",
     "StepGraphs": "graphs",
 }
 

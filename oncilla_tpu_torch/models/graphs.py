@@ -11,7 +11,10 @@ the whole graph per step.
 Every step function it serves has the signature
 ``fn(params, *args, cfg) -> (logits, tail_k, tail_v)`` and updates its tail
 buffers, the last two of ``args``, in place (:mod:`.kv_paging`'s
-``paged_token_step`` and ``paged_decode_batch_step``). A graph reads and
+``paged_token_step`` and ``paged_decode_batch_step``, or either bound to
+a family's hooks by ``kv_paging.hooked_step``). The key holds ``fn`` by
+identity, so a step must be one stable callable, not a partial made anew
+at each call: each new callable would capture a new graph. A graph reads and
 writes fixed ("static") buffers: :meth:`StepGraphs.run` copies each argument
 into its static buffer, replays, and copies the tails back into the
 caller's, so a graphed call has the eager call's effect. ``tags`` lets a

@@ -16,10 +16,17 @@ JAX jit steps (:func:`paged_token_step`, :func:`paged_decode_batch_step`,
 scalar on the device, so the step can be captured in a CUDA graph
 (:mod:`.graphs`): the serving engine's batched step and the page-fused
 modes of the kv_decode harness replay it.
+
+Every step takes the family hooks of the JAX package, ``layer_params_fn``
+(the layer slicer) and ``mlp_of`` (``mlp_of(lp) -> mlp``, the FFN that
+replaces the dense SwiGLU): the MoE family passes
+:func:`oncilla_tpu_torch.models.moe.paged_hooks` and pages its KV the same
+way. Without hooks the dense family runs as before.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -146,6 +153,8 @@ def paged_decode_step(
     tail_k: torch.Tensor,   # (L, B, KV, P, Hd) local tail, updated in place
     tail_v: torch.Tensor,
     cfg: LlamaConfig,
+    layer_params_fn=None,
+    mlp_of=None,
 ):
     """One paged-decode token (``_paged_token`` of the JAX package). The
     keys are the paged context (global positions ``ctx_start ..``) followed
@@ -154,7 +163,9 @@ def paged_decode_step(
     the sliding window, where the JAX package masks a fixed-size tail, so
     it runs the same arithmetic on the same shapes as the unpaged
     :func:`llama.decode_step`. Writes this token's K/V into the tail at
-    ``tail_len`` and returns (logits (B, vocab), tail_k, tail_v)."""
+    ``tail_len`` and returns (logits (B, vocab), tail_k, tail_v).
+    ``layer_params_fn``/``mlp_of`` are the family hooks (module doc)."""
+    lp_fn = layer_params_fn or llama.layer_params
     dev = token.device
     x = params["embed"][token][:, None, :].to(torch_dtype(cfg.dtype))
     positions = torch.tensor([pos], device=dev)
@@ -171,8 +182,9 @@ def paged_decode_step(
                                tail_v[i, :, :, :tail_len + 1].to(q.dtype)], dim=2)
             return llama.grouped_attention(q, k_all[:, :, drop:], v_all[:, :, drop:])
 
-        x = llama.block(cfg, x, llama.layer_params(params, i), positions,
-                        attend)
+        lp = lp_fn(params, i)
+        x = llama.block(cfg, x, lp, positions, attend,
+                        mlp=mlp_of(lp) if mlp_of else None)
 
     return llama.final_logits(params, x, cfg)[:, 0], tail_k, tail_v
 
@@ -186,6 +198,8 @@ def paged_token_step(
     tail_k: torch.Tensor,   # (L, B, KV, P, Hd) tails, updated in place
     tail_v: torch.Tensor,
     cfg: LlamaConfig,
+    layer_params_fn=None,
+    mlp_of=None,
 ):
     """One paged-decode token for B rows on fixed shapes: the JAX package's
     ``_paged_token`` (kv_paging.py:260) with the per-row ``meta`` of its
@@ -195,7 +209,9 @@ def paged_token_step(
     (-1e30). Row b's new K/V go into its tail slot ``tail_len``, in place.
     Every scalar lives in ``meta`` on the device and no shape depends on
     it, so the step is the same kernels at every position: what a CUDA
-    graph captures. Returns (logits (B, vocab) fp32, tail_k, tail_v)."""
+    graph captures. Returns (logits (B, vocab) fp32, tail_k, tail_v);
+    ``layer_params_fn``/``mlp_of`` are the family hooks (module doc)."""
+    lp_fn = layer_params_fn or llama.layer_params
     dev = tokens.device
     P, C = tail_k.shape[3], k_ctx.shape[3]
     pos, tail_len, ctx_len, ctx_start = meta.unbind(1)
@@ -218,8 +234,9 @@ def paged_token_step(
             v_all = torch.cat([v_ctx[i].to(q.dtype), tail_v[i].to(q.dtype)], 2)
             return llama.grouped_attention(q, k_all, v_all, mask)
 
-        x = llama.block(cfg, x, llama.layer_params(params, i), pos[:, None],
-                        attend)
+        lp = lp_fn(params, i)
+        x = llama.block(cfg, x, lp, pos[:, None], attend,
+                        mlp=mlp_of(lp) if mlp_of else None)
 
     return llama.final_logits(params, x, cfg)[:, 0], tail_k, tail_v
 
@@ -234,6 +251,8 @@ def paged_decode_batch_step(
     tail_k: torch.Tensor,   # (L, B, KV, P, Hd) per-session tails, in place
     tail_v: torch.Tensor,
     cfg: LlamaConfig,
+    layer_params_fn=None,
+    mlp_of=None,
 ):
     """One decode step for a whole batch of paged sessions
     (``paged_decode_batch_step_jit``, kv_paging.py:320 of the JAX package).
@@ -249,7 +268,25 @@ def paged_decode_batch_step(
     k_ctx = pool_k[table].permute(2, 0, 3, 1, 4, 5).reshape(L, B, KV, MP * P, Hd)
     v_ctx = pool_v[table].permute(2, 0, 3, 1, 4, 5).reshape(L, B, KV, MP * P, Hd)
     return paged_token_step(params, tokens, meta, k_ctx, v_ctx, tail_k,
-                            tail_v, cfg)
+                            tail_v, cfg, layer_params_fn, mlp_of)
+
+
+def hooked_step(fn, layer_params_fn=None, mlp_of=None):
+    """``fn`` (a step of this module) bound to the family hooks: ``fn``
+    itself without hooks, else one ``functools.partial`` for each
+    (fn, hooks), memoised so that it is one stable callable. A
+    :class:`~.graphs.StepGraphs` keys its graphs on the step's identity,
+    as the JAX package's jit keys its static hook arguments: a new partial
+    a token would capture a new graph a token."""
+    if layer_params_fn is None and mlp_of is None:
+        return fn
+    return _hooked(fn, layer_params_fn, mlp_of)
+
+
+@functools.lru_cache(maxsize=64)
+def _hooked(fn, layer_params_fn, mlp_of):
+    return functools.partial(fn, layer_params_fn=layer_params_fn,
+                             mlp_of=mlp_of)
 
 
 def bucket_context(k_ctx: torch.Tensor, v_ctx: torch.Tensor,
@@ -290,6 +327,8 @@ def paged_decode_page(
     cfg: LlamaConfig,
     graphs: StepGraphs | None = None,
     ctx_len: int | None = None,
+    layer_params_fn=None,
+    mlp_of=None,
 ):
     """One full page of teacher-forced paged decode from an empty tail
     (``paged_decode_page_jit``, kv_paging.py:435): token j decodes at
@@ -297,20 +336,21 @@ def paged_decode_page(
     keys (by default all C; less when the context is bucketed,
     :func:`bucket_context`). The JAX package scans the page in one
     program; here the P token steps run eagerly, or replay one captured
-    token step P times through the caller's graph cache ``graphs``.
+    token step P times through the caller's graph cache ``graphs``
+    (the hooked step is :func:`hooked_step`'s, one graph a bucket).
     Returns (logits (B, P, vocab), tail_k, tail_v)."""
     B, P = tokens_page.shape
     C = k_ctx.shape[3] if ctx_len is None else ctx_len
     metas = _page_metas(meta, B, P, C, tokens_page.device)
+    step = hooked_step(paged_token_step, layer_params_fn, mlp_of)
     out = []
     ctx_tag = object()  # the context is loaded into a graph once a page
     for j in range(P):
         args = (tokens_page[:, j], metas[j], k_ctx, v_ctx, tail_k, tail_v)
         if graphs is None:
-            logits, _, _ = paged_token_step(params, *args, cfg)
+            logits, _, _ = step(params, *args, cfg)
         else:
-            logits, _, _ = graphs.run(paged_token_step, args,
-                                      {2: ctx_tag, 3: ctx_tag})
+            logits, _, _ = graphs.run(step, args, {2: ctx_tag, 3: ctx_tag})
         out.append(logits.clone() if graphs is not None else logits)
     return torch.stack(out, 1), tail_k, tail_v
 
@@ -326,6 +366,8 @@ def paged_generate_page(
     cfg: LlamaConfig,
     generator: torch.Generator | None = None,
     temperature: float = 0.0,
+    layer_params_fn=None,
+    mlp_of=None,
 ):
     """One page of autoregressive paged decode (``paged_generate_page_jit``,
     kv_paging.py:486): each step consumes the previous step's sample
@@ -338,7 +380,8 @@ def paged_generate_page(
     tok, out = token0, []
     for j in range(P):
         logits, _, _ = paged_token_step(params, tok, metas[j], k_ctx, v_ctx,
-                                        tail_k, tail_v, cfg)
+                                        tail_k, tail_v, cfg, layer_params_fn,
+                                        mlp_of)
         tok = llama.sample_token(logits, temperature, generator)
         out.append(tok)
     return torch.stack(out, 1), tail_k, tail_v
@@ -356,7 +399,8 @@ class BucketedPagedDecoder:
     token (the JAX package's one compiled program per page), through
     ``graphs``, a :class:`~.graphs.StepGraphs` of the same params that
     decoders may share, by default the decoder's own, freed at
-    :meth:`close`; on the CPU it runs eagerly."""
+    :meth:`close`; on the CPU it runs eagerly. ``layer_params_fn``/
+    ``mlp_of`` are the family hooks (``**moe.paged_hooks(cfg)``)."""
 
     def __init__(
         self,
@@ -369,12 +413,15 @@ class BucketedPagedDecoder:
         dtype: str = "float32",
         refetch: bool = False,
         graphs: StepGraphs | None = None,
+        layer_params_fn=None,
+        mlp_of=None,
     ):
         self.params = params
         self.cfg = cfg
         self.cache = PagedKVCache(backend, cfg, batch, page_tokens, kind, dtype)
         self.page_tokens = page_tokens
         self.refetch = refetch
+        self._hooks = dict(layer_params_fn=layer_params_fn, mlp_of=mlp_of)
         dev = params["embed"].device
         self._own_graphs = graphs is None and dev.type == "cuda"
         self.graphs = StepGraphs(params, cfg) if self._own_graphs else graphs
@@ -393,7 +440,7 @@ class BucketedPagedDecoder:
         logits, _, _ = paged_decode_step(
             self.params, token, self.pos, self._tail_len, self._ctx_start,
             self._fetched[0], self._fetched[1], self._tail_k, self._tail_v,
-            self.cfg,
+            self.cfg, **self._hooks,
         )
         self.pos += 1
         self._tail_len += 1
@@ -420,7 +467,7 @@ class BucketedPagedDecoder:
         logits, _, _ = paged_decode_page(
             self.params, tokens_page, (self.pos, self._ctx_start), k_ctx,
             v_ctx, self._tail_k, self._tail_v, self.cfg, graphs=self.graphs,
-            ctx_len=self._fetched[0].shape[3])
+            ctx_len=self._fetched[0].shape[3], **self._hooks)
         self.pos += self.page_tokens
         self._tail_len = self.page_tokens
         self._ship_page()
@@ -436,7 +483,8 @@ class BucketedPagedDecoder:
         out, _, _ = paged_generate_page(
             self.params, token, (self.pos, self._ctx_start),
             self._fetched[0], self._fetched[1], self._tail_k, self._tail_v,
-            self.cfg, generator=generator, temperature=temperature)
+            self.cfg, generator=generator, temperature=temperature,
+            **self._hooks)
         self.pos += self.page_tokens
         self._tail_len = self.page_tokens
         self._ship_page()
@@ -472,7 +520,7 @@ class BucketedPagedDecoder:
 
     def close(self) -> None:
         self.cache.free()
-        if self._own_graphs:
+        if self._own_graphs and self.graphs is not None:
             self.graphs.close()
 
 
@@ -482,7 +530,8 @@ class PagedDecoder:
     ``page_tokens`` steps the tail ships as a page and decode goes on
     against the pages held locally plus a fresh tail. A session resumed
     over pages stored before fetches them once. No eviction: with a
-    sliding window, attention reads the keys inside it."""
+    sliding window, attention reads the keys inside it. ``layer_params_fn``/
+    ``mlp_of`` are the family hooks (``**moe.paged_hooks(cfg)``)."""
 
     def __init__(
         self,
@@ -493,11 +542,14 @@ class PagedDecoder:
         page_tokens: int = 16,
         kind: OcmKind = OcmKind.REMOTE_DEVICE,
         dtype: str = "float32",
+        layer_params_fn=None,
+        mlp_of=None,
     ):
         self.params = params
         self.cfg = cfg
         self.cache = PagedKVCache(backend, cfg, batch, page_tokens, kind, dtype)
         self.page_tokens = page_tokens
+        self._hooks = dict(layer_params_fn=layer_params_fn, mlp_of=mlp_of)
         self.pos = 0
         dev = params["embed"].device
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, page_tokens, cfg.head_dim)
@@ -519,7 +571,7 @@ class PagedDecoder:
         k_ctx, v_ctx = self._context()
         logits, _, _ = paged_decode_step(
             self.params, token, self.pos, self._tail_len, 0, k_ctx, v_ctx,
-            self._tail_k, self._tail_v, self.cfg)
+            self._tail_k, self._tail_v, self.cfg, **self._hooks)
         self.pos += 1
         self._tail_len += 1
         if self._tail_len == self.page_tokens:

@@ -83,6 +83,15 @@ class LlamaConfig:
             ffn_hidden=14336, max_seq=8192, rope_theta=500000.0,
         )
 
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        """Mistral-7B v0.1 geometry: the sliding-window shape (v0.2 dropped
+        the window and raised rope_theta)."""
+        return LlamaConfig(
+            vocab=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+            ffn_hidden=14336, max_seq=8192, rope_theta=10000.0, window=4096,
+        )
+
 
 LAYER_KEYS = (
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln_attn", "ln_mlp"
@@ -114,26 +123,35 @@ def param_spec(cfg: LlamaConfig) -> dict:
     }
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
-                device=None, seed: int = 0) -> dict:
-    """Scaled-normal init on ``device`` from ``generator`` (one on that
-    device, seeded with ``seed``, when not given). Stacked leaves are drawn
-    one layer at a time so the fp32 draw never holds a whole leaf."""
+def init_from_spec(spec: dict, dtype, generator: torch.Generator | None = None,
+                   device=None, seed: int = 0) -> dict:
+    """Scaled-normal init of a {name: (shape, scale | None)} spec on
+    ``device`` from ``generator`` (one on that device, seeded with
+    ``seed``, when not given); None is a ones-initialised fp32 norm gain.
+    Shared by the dense and MoE families. Every leaf of rank 3 or more is
+    drawn one layer at a time, so the fp32 draw never holds a whole
+    stacked leaf (a Mixtral expert leaf is 7.5 GB in fp32)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    dt = torch_dtype(cfg.dtype)
+    dt = torch_dtype(dtype)
     out = {}
-    for name, (shape, scale) in param_spec(cfg).items():
+    for name, (shape, scale) in spec.items():
         if scale is None:
             out[name] = torch.ones(shape, dtype=torch.float32, device=dev)
             continue
         t = torch.empty(shape, dtype=dt, device=dev)
-        for part in (t if len(shape) == 3 else [t]):
+        for part in (t if len(shape) >= 3 else [t]):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    dtype=torch.float32, device=dev) * scale)
         out[name] = t
     return out
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
+                device=None, seed: int = 0) -> dict:
+    """:func:`init_from_spec` of the dense family's :func:`param_spec`."""
+    return init_from_spec(param_spec(cfg), cfg.dtype, generator, device, seed)
 
 
 def init_params_host(seed: int, cfg: LlamaConfig, device=None) -> dict:
@@ -405,6 +423,9 @@ def decode_step(
     pos: int,                 # current position
     kv_cache: tuple,          # (k, v) each (L, B, KV, T, Hd)
     cfg: LlamaConfig,
+    *,
+    layer_params_fn=layer_params,
+    mlp_of=None,
 ):
     """Single-token decode over a contiguous cache: returns
     (logits (B, vocab) fp32, kv_cache). This token's K/V are written into
@@ -414,7 +435,12 @@ def decode_step(
     the start of the sliding window, else 0), where the JAX package masks a
     static-length cache: eager PyTorch needs no static shapes, and the paged
     decoder attends over the same slice, so the two do the same arithmetic
-    on the same shapes."""
+    on the same shapes.
+
+    ``layer_params_fn`` / ``mlp_of`` are the family hooks: the MoE family
+    passes its layer slicer and an ``mlp_of(lp) -> mlp`` factory, so the
+    same cache machinery decodes a sparse-FFN model
+    (:func:`oncilla_tpu_torch.models.moe.decode_step`)."""
     pos = int(pos)
     dev = token.device
     x = params["embed"][token][:, None, :].to(torch_dtype(cfg.dtype))
@@ -423,7 +449,7 @@ def decode_step(
     lo = 0 if cfg.window is None else max(0, pos - cfg.window + 1)
 
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_params_fn(params, i)
 
         def attend(q, kn, vn, i=i):
             k_cache[i, :, :, pos] = kn[:, :, 0].to(k_cache.dtype)
@@ -433,7 +459,8 @@ def decode_step(
                 v_cache[i, :, :, lo:pos + 1].to(q.dtype),
             )
 
-        x = block(cfg, x, lp, positions, attend)
+        x = block(cfg, x, lp, positions, attend,
+                  mlp=mlp_of(lp) if mlp_of else None)
 
     return final_logits(params, x, cfg)[:, 0], (k_cache, v_cache)
 

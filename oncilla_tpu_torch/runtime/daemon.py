@@ -468,6 +468,10 @@ class Daemon:
         # (the _member_unsynced pattern: reaper retries stragglers).
         self._leader_unsynced: set[int] = set()
         self._leader_update_fields: dict | None = None
+        # Members whose row had no port when the broadcast was armed:
+        # each joins the retry set once its row gains one (its ADD_NODE
+        # or join gossip reached this leader after the election).
+        self._leader_portless: set[int] = set()
         self._leader_sync_lock = make_lock("daemon._leader_sync_lock")
         # Hash placement's deferred accounting: NOTE_ALLOC messages bound
         # for the leader, drained by the reaper so the alloc path itself
@@ -1048,7 +1052,10 @@ class Daemon:
     def _queue_leader_sync(self, dead_rank: int, inc: int) -> None:
         """(Re)arm the LEADER_UPDATE broadcast toward every live member
         and push once inline; the reaper retries stragglers (the
-        _member_unsynced pattern)."""
+        _member_unsynced pattern). A member whose row has no port yet is
+        remembered, and joins the broadcast when its row gains one."""
+        members = [e for e in self.entries
+                   if e.rank != self.rank and not self.entries.has_left(e.rank)]
         with self._leader_sync_lock:
             self._leader_update_fields = {
                 "leader": self.leader_rank,
@@ -1056,15 +1063,18 @@ class Daemon:
                 "dead_rank": dead_rank,
                 "inc": inc,
             }
-            self._leader_unsynced = {
-                e.rank for e in self.entries
-                if e.rank != self.rank and e.port
-                and not self.entries.has_left(e.rank)
-            }
+            self._leader_unsynced = {e.rank for e in members if e.port}
+            self._leader_portless = {e.rank for e in members if not e.port}
         self._sync_leader_update()
 
     def _sync_leader_update(self) -> None:
         with self._leader_sync_lock:
+            portless = set(self._leader_portless)
+        gained = {r for r in portless
+                  if r < len(self.entries) and self.entries[r].port}
+        with self._leader_sync_lock:
+            self._leader_portless -= gained
+            self._leader_unsynced |= gained
             fields = self._leader_update_fields
             pending = sorted(self._leader_unsynced)
         if fields is None:
@@ -1938,7 +1948,7 @@ class Daemon:
             try:
                 if self.config.standby_masters > 0 and self.is_leader:
                     self._push_master_state()
-                if self._leader_unsynced:
+                if self._leader_unsynced or self._leader_portless:
                     self._sync_leader_update()
                 self._drain_accounting()
             except Exception as e:  # noqa: BLE001 — see above

@@ -169,6 +169,13 @@ class ClusterView:
             for m in members:
                 while len(self._entries) <= m.rank:
                     self._entries.append(m)
+                if not m.port and self._entries[m.rank].port:
+                    # A row without a port is a member the table's maker
+                    # had not heard announce yet: it never replaces an
+                    # address this view holds (a promoted standby's stale
+                    # master state would cut the member off every
+                    # broadcast).
+                    continue
                 self._entries[m.rank] = m
             self._left = left
             self.epoch = max(self.epoch, epoch)

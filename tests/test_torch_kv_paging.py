@@ -43,7 +43,7 @@ def params():
 
 
 def test_config_and_spec_match_jax():
-    for name in ("tiny", "llama3_8b"):
+    for name in ("tiny", "llama3_8b", "mistral_7b"):
         j, t = getattr(jllama.LlamaConfig, name)(), getattr(tllama.LlamaConfig, name)()
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert jllama.param_spec(j) == tllama.param_spec(t)
