@@ -191,11 +191,13 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
         copy_kw: dict | None = None, ceiling_kw: dict | None = None,
         gb_kw: dict | None = None, kv_kw: dict | None = None,
         mfu_kw: dict | None = None, dcn_kw: dict | None = None,
-        gups_kw: dict | None = None) -> dict:
+        gups_kw: dict | None = None, dcn_tail: bool = True) -> dict:
     """Every stage on ``device``; returns the JSON object. ``*_kw`` override
     a stage's sizes (the defaults are bench.py's); ``mfu_kw`` holds
     ``forward`` (:func:`.mfu.mfu_forward`'s arguments) and ``train``
-    (:func:`.mfu.mfu_train_best`'s, ``variants`` among them)."""
+    (:func:`.mfu.mfu_train_best`'s, ``variants`` among them). ``dcn_tail``
+    False leaves out the wire's re-run at the end (``chip_smoke.py``, whose
+    time limit the bench shares, keeps the early echo alone)."""
     from oncilla_tpu_torch.benchmarks import mfu
     from oncilla_tpu_torch.benchmarks.ceiling import ceiling_probe
     from oncilla_tpu_torch.benchmarks.gups import gups_handle_best
@@ -330,7 +332,7 @@ def run(device=None, deadline_s: float = 840.0, timing: bool = True,
 
     # The wire again after the heavy stages (bench.py:750-751); a failed or
     # skipped tail never clobbers the early echo.
-    if budgeted("dcn_tail", 60):
+    if dcn_tail and budgeted("dcn_tail", 60):
         bank_dcn()
     mark("dcn_tail")
 

@@ -1,5 +1,5 @@
-"""Model-side public surface: the Llama and MoE families, KV paging, dense
-training on one device and the checkpoint, mirroring
+"""Model-side public surface: the Llama and MoE families, KV paging,
+training on one device or a mesh and the checkpoint, mirroring
 ``oncilla_tpu/models/__init__.py``'s exports for what the port has.
 
 Attribute access is lazy (PEP 562); submodules (``models.llama``,
@@ -33,6 +33,15 @@ _EXPORTS = {
     "make_train_state": "train",
     "make_train_state_host": "train",
     "make_train_step": "train",
+    "make_mesh": "train",
+    "make_moe_mesh": "train",
+    "make_pp_mesh": "train",
+    "make_moe_train_state": "train",
+    "make_moe_train_step": "train",
+    "make_pp_train_state": "train",
+    "make_pp_train_step": "train",
+    "make_moe_pp_train_state": "train",
+    "make_moe_pp_train_step": "train",
     "make_eval_step": "train",
     "evaluate": "train",
     "sample_batch": "train",

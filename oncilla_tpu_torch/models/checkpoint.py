@@ -26,6 +26,14 @@ returns tensors on the device asked for (the context's by default): the
 region is read straight into one buffer there, and the leaves are views
 into it. The legacy ``OCMCKPT1``
 header (``data_start`` recomputed) still loads.
+
+Sharded states (a tree of this process's shards, each leaf with a
+``NamedSharding``): :func:`save_sharded` gathers each full leaf in turn and
+packs it into the one region of :func:`save` on one process, which makes
+the one put; :func:`load_sharded` restores the full leaves (read by every
+process, or by one and broadcast) and keeps each process's slice under the
+shardings it is given, which may name another mesh than the state was
+saved from.
 """
 
 from __future__ import annotations
@@ -112,13 +120,20 @@ def _aligned(n: int, to: int = _ALIGN) -> int:
     return (n + to - 1) // to * to
 
 
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size() if isinstance(
+        dtype, torch.dtype) else np.dtype(dtype).itemsize
+
+
 def _layout(flat):
     """The ONE place the layout is decided: (manifest bytes, data_start,
-    data_len), each manifest entry's offset relative to data_start."""
+    data_len), each manifest entry's offset relative to data_start.
+    ``flat`` holds (key, leaf) pairs; only each leaf's shape and dtype are
+    read."""
     entries = []
     off = 0
     for key, t in flat:
-        nbytes = t.numel() * t.element_size()
+        nbytes = int(np.prod(t.shape, dtype=np.int64)) * _itemsize(t.dtype)
         entries.append({
             "key": key, "shape": list(t.shape), "dtype": _dtype_name(t.dtype),
             "offset": off, "nbytes": nbytes,
@@ -139,8 +154,17 @@ def _pack(tree) -> torch.Tensor:
     """The region as one uint8 tensor, on the first card a leaf lies on,
     else on the CPU; the copies are queued on the current stream."""
     flat = _flatten(tree)
-    manifest, data_start, data_len = _layout(flat)
     dev = next((t.device for _, t in flat if t.is_cuda), torch.device("cpu"))
+    region, entries, data_start = _region(flat, dev)
+    for (_, t), ent in zip(flat, entries):
+        _write_leaf(region, data_start, ent, t)
+    return region
+
+
+def _region(flat, dev):
+    """The zeroed region of ``flat``'s layout on ``dev`` with its header
+    written: (region, manifest entries, data_start)."""
+    manifest, data_start, data_len = _layout(flat)
     region = torch.zeros(_aligned(data_start + data_len, BLOCK),
                          dtype=torch.uint8, device=dev)
     # data_start is written into the header (not recomputed at load), so
@@ -151,11 +175,13 @@ def _pack(tree) -> torch.Tensor:
     if dev.type == "cuda":
         head = head.pin_memory()
     region[:head.numel()].copy_(head, non_blocking=True)
-    for (_, t), ent in zip(flat, json.loads(manifest)["leaves"]):
-        raw = t.contiguous().reshape(-1).view(torch.uint8)
-        o = data_start + ent["offset"]
-        region[o:o + raw.numel()].copy_(raw, non_blocking=True)
-    return region
+    return region, json.loads(manifest)["leaves"], data_start
+
+
+def _write_leaf(region, data_start: int, ent: dict, t: torch.Tensor) -> None:
+    raw = t.contiguous().reshape(-1).view(torch.uint8)
+    o = data_start + ent["offset"]
+    region[o:o + raw.numel()].copy_(raw, non_blocking=True)
 
 
 def _ship(ctx, region: torch.Tensor, kind: OcmKind, alloc_kw: dict) -> OcmAlloc:
@@ -252,3 +278,89 @@ def load(ctx, handle: OcmAlloc, like=None, device=None):
         return got
 
     return _rebuild(like, restored)
+
+
+# -- sharded states ------------------------------------------------------------
+
+
+def _shardings_by_key(shardings) -> dict:
+    return dict(_walk(shardings))
+
+
+def full_like(tree, shardings):
+    """``tree`` (this process's shards) as meta tensors of the full leaves'
+    shapes and dtypes: the ``like`` of :func:`load_sharded`."""
+    from oncilla_tpu_torch.parallel.mesh import full_shape
+
+    by_key = _shardings_by_key(shardings)
+
+    def meta(key, leaf):
+        ns = by_key[key]
+        return torch.empty(full_shape(leaf.shape, ns.mesh, ns.spec),
+                           dtype=leaf.dtype, device="meta")
+
+    return _rebuild(tree, meta)
+
+
+def save_sharded(ctx, tree, shardings, kind: OcmKind = OcmKind.LOCAL_HOST,
+                 **alloc_kw):
+    """Save a sharded state as :func:`save` saves the whole one: every
+    process of the mesh calls it; each full leaf is gathered in turn and
+    copied into the region on process 0 (where ``ctx`` lives; the others
+    pass None), so it holds one full leaf at a time beside the region, which
+    it then puts with one ``put``. Returns the handle on process 0, None
+    elsewhere."""
+    import torch.distributed as dist
+
+    from oncilla_tpu_torch.parallel.mesh import gather
+
+    by_key = _shardings_by_key(shardings)
+    flat = _flatten(tree)
+    metas = full_like(tree, shardings)
+    first = not dist.is_initialized() or dist.get_rank() == 0
+    region = entries = data_start = None
+    if first:
+        dev = next((t.device for _, t in flat if t.is_cuda), torch.device("cpu"))
+        region, entries, data_start = _region(_flatten(metas), dev)
+    for i, (key, t) in enumerate(flat):
+        ns = by_key[key]
+        full = gather(t, ns.mesh, ns.spec)
+        if first:
+            _write_leaf(region, data_start, entries[i], full)
+        del full
+    return _ship(ctx, region, kind, alloc_kw) if first else None
+
+
+def load_sharded(ctx, handle: OcmAlloc, like, shardings, src: int | None = None):
+    """Restore a checkpoint and keep each process's slice of every leaf
+    under ``shardings`` (a tree of ``NamedSharding`` matching ``like``,
+    whose leaves give the full shapes and dtypes, e.g. :func:`full_like`'s):
+    a sharded train state resumes on a mesh that may differ from the one it
+    was saved from. Each process reads the checkpoint through its ``ctx``;
+    with ``src``, process ``src`` alone reads it (one get) and broadcasts
+    each leaf to the others, which pass ``ctx=None`` and ``handle=None``."""
+    import torch.distributed as dist
+
+    from oncilla_tpu_torch.parallel.mesh import shard
+
+    by_key = _shardings_by_key(shardings)
+    me = dist.get_rank() if dist.is_initialized() else 0
+    full = load(ctx, handle) if src is None or me == src else None
+
+    def place(key, leaf):
+        ns = by_key[key]
+        if src is None:
+            got = full[key]
+        elif me == src:
+            got = full[key]
+            dist.broadcast(got, src=src)
+        else:
+            got = torch.empty(leaf.shape, dtype=leaf.dtype, device=ns.mesh.device)
+            dist.broadcast(got, src=src)
+        if tuple(got.shape) != tuple(leaf.shape) or got.dtype != leaf.dtype:
+            raise ValueError(f"leaf {key!r} mismatch: checkpoint "
+                             f"{_NAMES[got.dtype]}{tuple(got.shape)} vs expected "
+                             f"{_dtype_name(leaf.dtype)}{tuple(leaf.shape)}")
+        return shard(got, ns.mesh, ns.spec)
+
+    return _rebuild(like, place)

@@ -17,6 +17,22 @@ carry JAX's parameters across with :func:`params_from_jax`), while
 returning a functional copy; ``remat`` is ``torch.utils.checkpoint``; and
 the loops the JAX package writes as ``lax.scan`` are Python loops (eager
 launches are asynchronous, so no host synchronisation sits in them).
+
+Sharded training (``mesh``): the JAX package hands GSPMD global arrays and
+lets it insert the collectives; here each process holds its shards under
+``train.param_specs`` and the collectives are written out
+(:mod:`oncilla_tpu_torch.parallel.collectives`). Under ``tp`` the
+column-split products (wq/wk/wv, w_gate/w_up, lm_head) take their input
+through ``copy`` and the row-split ones (wo, w_down) end in ``psum`` (the
+Megatron pair); ``embed`` is a vocab-split lookup summed over ``tp``; the
+cross entropy is vocab-parallel (the max and the sum of exponentials reduced
+over ``tp``). Under a sequence axis the tokens are this process's chunk:
+RoPE positions are global, attention is the ring
+(:mod:`oncilla_tpu_torch.parallel.ring_attention`, or the K/V gathered
+over the axis without ``ring``), the last token of a chunk is scored
+against the first of the next, and the loss is the mean over the global
+B·(S-1) predicted tokens, summed over the data axes. On a mesh of one
+every path is the one-device code.
 """
 
 from __future__ import annotations
@@ -33,6 +49,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from oncilla_tpu_torch.parallel import collectives as col
+from oncilla_tpu_torch.parallel.mesh import DP, TP
 from oncilla_tpu_torch.utils.platform import resolve_device
 
 _DTYPES = {
@@ -124,13 +142,15 @@ def param_spec(cfg: LlamaConfig) -> dict:
 
 
 def init_from_spec(spec: dict, dtype, generator: torch.Generator | None = None,
-                   device=None, seed: int = 0) -> dict:
+                   device=None, seed: int = 0, keep=None) -> dict:
     """Scaled-normal init of a {name: (shape, scale | None)} spec on
     ``device`` from ``generator`` (one on that device, seeded with
     ``seed``, when not given); None is a ones-initialised fp32 norm gain.
     Shared by the dense and MoE families. Every leaf of rank 3 or more is
     drawn one layer at a time, so the fp32 draw never holds a whole
-    stacked leaf (a Mixtral expert leaf is 7.5 GB in fp32)."""
+    stacked leaf (a Mixtral expert leaf is 7.5 GB in fp32). ``keep(name,
+    leaf)``, when given, is stored in place of each drawn leaf (a sharded
+    state keeps its slice): only one whole leaf is held at a time."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -138,39 +158,44 @@ def init_from_spec(spec: dict, dtype, generator: torch.Generator | None = None,
     out = {}
     for name, (shape, scale) in spec.items():
         if scale is None:
-            out[name] = torch.ones(shape, dtype=torch.float32, device=dev)
-            continue
-        t = torch.empty(shape, dtype=dt, device=dev)
-        for part in (t if len(shape) >= 3 else [t]):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   dtype=torch.float32, device=dev) * scale)
-        out[name] = t
+            t = torch.ones(shape, dtype=torch.float32, device=dev)
+        else:
+            t = torch.empty(shape, dtype=dt, device=dev)
+            for part in (t if len(shape) >= 3 else [t]):
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       dtype=torch.float32, device=dev) * scale)
+        out[name] = t if keep is None else keep(name, t)
+        del t
     return out
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
-                device=None, seed: int = 0) -> dict:
+                device=None, seed: int = 0, keep=None) -> dict:
     """:func:`init_from_spec` of the dense family's :func:`param_spec`."""
-    return init_from_spec(param_spec(cfg), cfg.dtype, generator, device, seed)
+    return init_from_spec(param_spec(cfg), cfg.dtype, generator, device, seed,
+                          keep)
 
 
-def init_params_host(seed: int, cfg: LlamaConfig, device=None) -> dict:
+def init_params_host(seed: int, cfg: LlamaConfig, device=None, keep=None) -> dict:
     """The JAX package's ``init_params_host``: the same numpy draws in the
     same order, so both packages start from identical weights, moved to
-    ``device``."""
+    ``device`` (``keep`` as in :func:`init_from_spec`)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     dt = torch_dtype(cfg.dtype)
     out = {}
     for name, (shape, scale) in param_spec(cfg).items():
         if scale is None:
-            out[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+            t = torch.ones(shape, dtype=torch.float32)
         else:
             # numpy computes the product in float64 (a float32 array times a
             # numpy float64); it is rounded to float32, then to the weight
             # dtype, as the JAX package's astype rounds it.
             x = rng.standard_normal(shape, dtype=np.float32) * scale
-            out[name] = torch.from_numpy(x.astype(np.float32)).to(dev, dt)
+            t = torch.from_numpy(x.astype(np.float32))
+        if keep is not None:
+            t = keep(name, t)
+        out[name] = t.to(dev, dt if scale is not None else torch.float32)
     return out
 
 
@@ -254,29 +279,33 @@ def causal_mask(sq: int, sk: int, window: int | None = None,
     return m
 
 
-def block(cfg: LlamaConfig, x, lp, positions, attend, mlp=None):
+def block(cfg: LlamaConfig, x, lp, positions, attend, mlp=None, tp=None):
     """One transformer block. x: (B, S, D); ``attend(q, kn, vn)`` gets the
     rotary-embedded q (B, H, S, Hd) and unexpanded K/V (B, KV, S, Hd) and
     returns (B, H, S, Hd). ``mlp(h)`` (if given) replaces the dense SwiGLU
-    FFN on the rmsnorm'd residual (the MoE family's hook)."""
+    FFN on the rmsnorm'd residual (the MoE family's hook). ``tp``: the
+    tensor-parallel group, when ``lp`` holds this process's heads and ffn
+    columns (the head counts follow the weights' widths)."""
     B, S, _ = x.shape
-    H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hd = cfg.head_dim
 
-    h = rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, H, Hd)
-    kn = (h @ lp["wk"]).reshape(B, S, KV, Hd)
-    vn = (h @ lp["wv"]).reshape(B, S, KV, Hd)
+    h = col.copy(rmsnorm(x, lp["ln_attn"], cfg.norm_eps), tp)
+    q = (h @ lp["wq"]).reshape(B, S, -1, Hd)
+    kn = (h @ lp["wk"]).reshape(B, S, -1, Hd)
+    vn = (h @ lp["wv"]).reshape(B, S, -1, Hd)
     q = rope(q.transpose(1, 2), positions, cfg.rope_theta)
     kn = rope(kn.transpose(1, 2), positions, cfg.rope_theta)
     vn = vn.transpose(1, 2)
     attn = attend(q, kn, vn)
-    attn = attn.transpose(1, 2).reshape(B, S, H * Hd)
-    x = x + attn @ lp["wo"]
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    x = x + col.psum(attn @ lp["wo"], tp)
 
     h = rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
     if mlp is not None:
         return x + mlp(h)
-    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    h = col.copy(h, tp)
+    y = (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return x + col.psum(y, tp)
 
 
 def final_logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
@@ -284,15 +313,40 @@ def final_logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
     return (x @ params["lm_head"]).float()
 
 
+def seq_sharded(mesh, seq_axis) -> bool:
+    return seq_axis is not None and mesh is not None and \
+        mesh.axis_size(seq_axis) > 1
+
+
 def make_attend(S: int, mesh=None, seq_axis: str | None = None,
-                window: int | None = None, device=None):
-    """Causal dense attention over S keys (``window`` band-limits it). The
-    JAX package's ring-attention branch (``seq_axis`` over a mesh) waits
-    for the sharded slice of the port."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "ring attention over a sequence axis is not ported yet "
-            "(ROADMAP A 3, the sharded meshes)")
+                window: int | None = None, device=None, ring: bool = True):
+    """The dense-vs-ring attention dispatch shared by the model families.
+    With ``mesh`` + ``seq_axis`` (an axis of size > 1) the queries, keys and
+    values are this process's chunk of S of the sequence, and the callback
+    runs ring attention over the axis (``ring`` False: the K/V chunks are
+    all-gathered and each query chunk attends to them, GSPMD's layout when
+    the JAX step runs without the ring); else causal dense attention over S
+    keys. ``window`` band-limits every path, from global positions."""
+    if seq_sharded(mesh, seq_axis):
+        from oncilla_tpu_torch.parallel.ring_attention import ring_attention
+
+        if ring:
+            def attend(q, kn, vn):
+                return ring_attention(q, kn, vn, mesh, axis_name=seq_axis,
+                                      causal=True, window=window)
+            return attend
+        n, me = mesh.axis_size(seq_axis), mesh.axis_index(seq_axis)
+        qg = me * S + torch.arange(S, device=device)[:, None]
+        kg = torch.arange(n * S, device=device)[None, :]
+        gmask = kg <= qg
+        if window is not None:
+            gmask &= kg > qg - window
+        group = mesh.group(seq_axis)
+
+        def attend(q, kn, vn):
+            return grouped_attention(q, col.all_gather(kn, 2, group),
+                                     col.all_gather(vn, 2, group), gmask)
+        return attend
     mask = causal_mask(S, S, window, device=device)
 
     def attend(q, kn, vn):
@@ -327,20 +381,49 @@ def _remat_wrap(fn, remat):
     return fn
 
 
+def tp_group(mesh):
+    """The tensor-parallel group of ``mesh`` (None without one)."""
+    return None if mesh is None else mesh.group(TP)
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None):
+    """The token embeddings in the activation dtype. Under ``tp`` the table
+    is split by vocab rows (``P(TP, None)``): each process looks up the ids
+    in its rows, zeros the rest, and the sum over ``tp`` is the lookup."""
+    tp = tp_group(mesh)
+    table = params["embed"]
+    if tp is None:
+        return table[tokens].to(torch_dtype(cfg.dtype))
+    rows = table.shape[0]
+    local = tokens.long() - mesh.axis_index(TP) * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].masked_fill(~mine[..., None], 0)
+    return col.psum(x, tp).to(torch_dtype(cfg.dtype))
+
+
+def positions_of(S: int, mesh, seq_axis, device) -> torch.Tensor:
+    """Global positions of this process's S tokens: chunk i of a sharded
+    sequence starts at i·S."""
+    start = mesh.axis_index(seq_axis) * S if seq_sharded(mesh, seq_axis) else 0
+    return torch.arange(start, start + S, device=device)
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
                    mesh=None, seq_axis: str | None = None,
-                   remat=False) -> torch.Tensor:
+                   remat=False, ring: bool = True) -> torch.Tensor:
     """Final hidden states (B, S, D), pre-``ln_out``; ``remat`` per
     :func:`_remat_wrap`. Each stacked leaf is unbound once, so its
-    gradient is one stack of the layers' gradients."""
+    gradient is one stack of the layers' gradients. With ``mesh``, params
+    and tokens are this process's shards (module docstring)."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
-    positions = torch.arange(S, device=tokens.device)
+    x = embed(params, tokens, cfg, mesh)
+    positions = positions_of(S, mesh, seq_axis, tokens.device)
     attend = make_attend(S, mesh, seq_axis, window=cfg.window,
-                         device=tokens.device)
+                         device=tokens.device, ring=ring)
+    tp = tp_group(mesh)
 
     def one_block(x, lp):
-        return block(cfg, x, lp, positions, attend)
+        return block(cfg, x, lp, positions, attend, tp=tp)
 
     one_block = _remat_wrap(one_block, remat)
     layers = {k: params[k].unbind(0) for k in LAYER_KEYS}
@@ -385,10 +468,82 @@ def blocked_cross_entropy(params: dict, x: torch.Tensor, targets: torch.Tensor,
     return total / (B * T)
 
 
+def _token_nll(xh: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    """Per-token NLL (fp32) of the normed hidden ``xh`` (B, T, D) against
+    ``targets`` (B, T). Under ``tp`` the head holds this process's vocab
+    columns: the max and the sum of exponentials are reduced over ``tp``,
+    and the target's logit comes from the process holding its column."""
+    tp = tp_group(mesh)
+    targets = targets.long()
+    if tp is None:
+        logits = (xh @ lm_head).float()
+        return torch.logsumexp(logits, dim=-1) - \
+            logits.gather(-1, targets[..., None])[..., 0]
+    logits = (col.copy(xh, tp) @ lm_head).float()
+    cols = logits.shape[-1]
+    top = col.pmax(logits.amax(dim=-1), tp)
+    lse = torch.log(col.psum(torch.exp(logits - top[..., None]).sum(-1), tp)) + top
+    local = targets - mesh.axis_index(TP) * cols
+    mine = (local >= 0) & (local < cols)
+    tgt = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    return lse - col.psum(tgt.masked_fill(~mine, 0.0), tp)
+
+
+def data_axes(mesh, seq_axis) -> tuple:
+    """The axes the token batch is split over: ``dp`` (when the mesh has
+    it) and the sequence axis."""
+    axes = (DP,) if mesh.axis_size(DP) > 1 else ()
+    return axes + ((seq_axis,) if seq_sharded(mesh, seq_axis) else ())
+
+
+def sharded_cross_entropy(params: dict, x: torch.Tensor, tokens: torch.Tensor,
+                          cfg: LlamaConfig, mesh, seq_axis=None,
+                          ce_block: int | None = None) -> torch.Tensor:
+    """Mean next-token CE over the global batch from this process's hidden
+    ``x`` (B, S, D) and tokens (B, S): the last token of a sequence chunk
+    is scored against the first of the next (sent back along the sequence
+    axis), the sum of NLLs is reduced over the data axes and divided by the
+    global B·(S-1). ``ce_block`` chunks the head as
+    :func:`blocked_cross_entropy` does. Replicated on every process."""
+    B, S = tokens.shape
+    n = mesh.axis_size(seq_axis) if seq_sharded(mesh, seq_axis) else 1
+    targets = tokens[:, 1:]
+    T = S - 1
+    if n > 1:
+        nxt = col.exchange(tokens[:, :1].contiguous(), mesh, seq_axis,
+                           [(i, i - 1) for i in range(1, n)], like=tokens[:, :1])
+        targets = torch.cat([targets, nxt], dim=1)
+        if mesh.axis_index(seq_axis) < n - 1:
+            T = S
+    xh = rmsnorm(x, params["ln_out"], cfg.norm_eps)[:, :T]
+    targets = targets[:, :T]
+    if ce_block is None:
+        total = _token_nll(xh, params["lm_head"], targets, mesh).sum()
+    else:
+        def chunk(xc, tc):
+            return _token_nll(xc, params["lm_head"], tc, mesh).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, T, ce_block):
+            sl = slice(lo, lo + ce_block)
+            total = total + checkpoint(chunk, xh[:, sl], targets[:, sl],
+                                       use_reentrant=False)
+    axes = data_axes(mesh, seq_axis)
+    total = col.psum(total, mesh.group(*axes))
+    return total / (B * mesh.axis_size(DP) * (S * n - 1))
+
+
 def loss_fn(params, tokens, cfg: LlamaConfig, *, ce_block: int | None = None,
-            **kw) -> torch.Tensor:
+            mesh=None, **kw) -> torch.Tensor:
     """Mean next-token cross entropy. ``ce_block`` switches to
-    :func:`blocked_cross_entropy`."""
+    :func:`blocked_cross_entropy`. With a ``mesh`` of more than one
+    process, params and tokens are this process's shards and the result is
+    the global loss on every process (:func:`sharded_cross_entropy`)."""
+    if mesh is not None and mesh.size > 1:
+        x = forward_hidden(params, tokens, cfg, mesh=mesh, **kw)
+        return sharded_cross_entropy(params, x, tokens, cfg, mesh,
+                                     kw.get("seq_axis"), ce_block)
     if ce_block is not None:
         x = forward_hidden(params, tokens, cfg, **kw)
         return blocked_cross_entropy(params, x, tokens[:, 1:], cfg,

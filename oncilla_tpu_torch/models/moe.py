@@ -23,9 +23,22 @@ What differs from the JAX module, by PyTorch idiom:
 - Nothing in :func:`route` or :func:`moe_ffn` synchronises with the host
   (no ``.item()``, no boolean indexing, the capacity a Python int of the
   static T), so a decode step through them is captured whole.
-- Expert parallelism (``mesh``/``ep_axis``) and ring attention
-  (``seq_axis``) wait for the sharded slice of the port and raise
-  ``NotImplementedError`` (ROADMAP A 3.2).
+
+Expert parallelism (``mesh``, ``ep_axis``): each process holds ``E / ep``
+experts (``train.moe_param_specs``) and, under ``tp``, its columns of their
+ffn. The tokens are replicated over ``ep`` and ``tp``, so every process of
+an (ep, tp) group routes the same tokens; each computes its experts' slots
+of the expert batch, and the combine is a sum over (ep, tp) (``psum``; the
+expert input and the combine weights enter through ``copy``, so their
+gradients sum the members' parts). Where the JAX package lets GSPMD lower
+the dispatch and combine einsums to all-to-alls, this exchange is one
+all-reduce of the (T, D) output a layer. Routing is global, as JAX's
+``moe_ffn`` sees the global (B, S, D): the capacity comes from the global
+token count, a (token, choice)'s slot counts the earlier data processes'
+picks of its expert (an exclusive prefix of the per-row counts gathered
+over the data axes, in the global token order), and the aux loss is a mean
+over every token. Under the pipeline the JAX step routes each dp shard's
+microbatch alone, and so does the port's (``train.make_pp_stage_fn``).
 """
 
 from __future__ import annotations
@@ -44,15 +57,9 @@ from oncilla_tpu_torch.models.llama import (
     final_logits,
     init_from_spec,
     param_spec,
-    torch_dtype,
 )
-
-
-def _no_mesh(mesh, axis) -> None:
-    if mesh is not None or axis is not None:
-        raise NotImplementedError(
-            "expert-parallel dispatch over a mesh is not ported yet "
-            "(ROADMAP A 3.2, the sharded meshes)")
+from oncilla_tpu_torch.parallel import collectives as col
+from oncilla_tpu_torch.parallel.mesh import DP, TP
 
 
 @dataclass(frozen=True)
@@ -98,10 +105,11 @@ def moe_param_spec(cfg: MoeConfig) -> dict:
 
 
 def init_moe_params(cfg: MoeConfig, generator: torch.Generator | None = None,
-                    device=None, seed: int = 0) -> dict:
-    """Scaled-normal init on ``device`` (:func:`llama.init_from_spec`)."""
+                    device=None, seed: int = 0, keep=None) -> dict:
+    """Scaled-normal init on ``device`` (:func:`llama.init_from_spec`,
+    ``keep`` as there)."""
     return init_from_spec(moe_param_spec(cfg), cfg.dtype, generator, device,
-                          seed)
+                          seed, keep)
 
 
 def capacity(cfg: MoeConfig, tokens: int) -> int:
@@ -119,7 +127,34 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def route(router_logits: torch.Tensor, top_k: int, cap: int):
+def _global_positions(oh: torch.Tensor, mesh, axes, rows: int) -> torch.Tensor:
+    """Each local (token, choice)'s place in its expert's queue counted in
+    the global choice-major order, where the T local tokens are ``rows``
+    rows (batch entries) of this process's chunk of a batch split over
+    ``axes``: first the batch axis (``dp``, rows of earlier processes come
+    first), then the sequence axis (a row's earlier chunks come first)."""
+    T, K, E = oh.shape
+    ohr = oh.reshape(rows, T // rows, K, E)
+    cnt = ohr.sum(dim=1)                                         # (rows, K, E)
+    counts = col.all_gather(cnt[None], 0, mesh.group(*axes))    # (G, rows, K, E)
+    seq = [a for a in axes if a != DP]
+    n_seq = mesh.axis_size(*seq)
+    n_b = counts.shape[0] // n_seq
+    # Pieces in the global token order: (batch process, row, chunk).
+    pieces = counts.reshape(n_b, n_seq, rows, K, E).transpose(1, 2).reshape(-1, K, E)
+    before = torch.cumsum(pieces, dim=0) - pieces
+    total = pieces.sum(dim=0)                                    # (K, E)
+    choice_base = torch.cumsum(total, dim=0) - total
+    mine = ((mesh.axis_index(*[a for a in axes if a == DP]) * rows
+             + torch.arange(rows, device=oh.device)) * n_seq
+            + mesh.axis_index(*seq))
+    local = torch.cumsum(ohr, dim=1) - ohr
+    pos = local + before[mine][:, None] + choice_base
+    return pos.reshape(T, K, E)
+
+
+def route(router_logits: torch.Tensor, top_k: int, cap: int, *, mesh=None,
+          axes: tuple = (), rows: int = 1):
     """Top-k capacity-based routing (fp32 throughout).
 
     router_logits: (T, E). Returns ``(dispatch, combine, aux)``: dispatch
@@ -128,8 +163,12 @@ def route(router_logits: torch.Tensor, top_k: int, cap: int):
     E·Σₑ fₑ·pₑ (fₑ the share of tokens whose first choice is e, pₑ the mean
     router probability of e; 1 when both are uniform). Slot priority is
     choice-major (module doc); equal probabilities pick the lower expert
-    first."""
+    first. With ``mesh`` and data ``axes`` the T tokens are this process's
+    ``rows`` rows of a global batch split over them: slots and aux are the
+    global batch's (:func:`_global_positions`), and ``cap`` must be the
+    global batch's capacity."""
     T, E = router_logits.shape
+    group = None if mesh is None else mesh.group(*axes)
     probs = torch.softmax(router_logits.float(), dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals = srt.values[:, :top_k]                            # (T, k)
@@ -140,9 +179,12 @@ def route(router_logits: torch.Tensor, top_k: int, cap: int):
 
     # Position of each (token, choice) in its expert's queue, counted in
     # choice-major order.
-    oh_priority = oh.transpose(0, 1).reshape(top_k * T, E)
-    pos = torch.cumsum(oh_priority, dim=0) - oh_priority
-    pos = pos.reshape(top_k, T, E).transpose(0, 1)               # (T, k, E)
+    if group is None:
+        oh_priority = oh.transpose(0, 1).reshape(top_k * T, E)
+        pos = torch.cumsum(oh_priority, dim=0) - oh_priority
+        pos = pos.reshape(top_k, T, E).transpose(0, 1)           # (T, k, E)
+    else:
+        pos = _global_positions(oh, mesh, axes, rows)
 
     pos_in_expert = (pos * oh).sum(dim=-1)                       # (T, k)
     keep = ((pos < cap) & (oh > 0)).any(dim=-1)                  # (T, k)
@@ -151,35 +193,55 @@ def route(router_logits: torch.Tensor, top_k: int, cap: int):
     dispatch = torch.einsum("tke,tkc->tec", oh, slot)
     combine = torch.einsum("tk,tke,tkc->tec", gate_vals, oh, slot)
 
-    first_choice_frac = oh[:, 0, :].mean(dim=0)                  # (E,)
-    mean_prob = probs.mean(dim=0)
+    if group is None:
+        first_choice_frac = oh[:, 0, :].mean(dim=0)              # (E,)
+        mean_prob = probs.mean(dim=0)
+    else:
+        n = T * mesh.axis_size(*axes)
+        first_choice_frac = col.psum(oh[:, 0, :].sum(dim=0), group) / n
+        mean_prob = col.psum(probs.sum(dim=0), group) / n
     aux = E * torch.sum(first_choice_frac * mean_prob)
     return dispatch, combine, aux
 
 
 def moe_ffn(h: torch.Tensor, lp: dict, cfg: MoeConfig, *, mesh=None,
-            ep_axis: str | None = None):
+            ep_axis: str | None = None, seq_axis: str | None = None):
     """The sparse FFN: route, dispatch, E-batched SwiGLU, combine.
 
     h: (B, S, D), the rmsnorm'd residual branch; ``lp`` holds this layer's
     ``w_router``/``w_gate_e``/``w_up_e``/``w_down_e``. The dispatch and
     combine tensors are cast to the activation dtype before their einsums,
     as in the JAX module (in bf16 the gate weights round before the
-    combine). Returns ``(y, aux)``."""
-    _no_mesh(mesh, ep_axis)
+    combine). With ``mesh``, h is this process's shard of the batch (split
+    over ``dp`` and ``seq_axis``, replicated over ``ep_axis`` and ``tp``)
+    and ``lp`` its shard of the experts (module docstring). Returns
+    ``(y, aux)``."""
     B, S, D = h.shape
     T = B * S
     x = h.reshape(T, D)
-    cap = capacity(cfg, T)
+    axes = () if mesh is None else llama.data_axes(mesh, seq_axis)
+    cap = capacity(cfg, T * (1 if mesh is None else mesh.axis_size(*axes)))
 
     router_logits = x.float() @ lp["w_router"].float()
-    dispatch, combine, aux = route(router_logits, cfg.top_k, cap)
+    dispatch, combine, aux = route(router_logits, cfg.top_k, cap, mesh=mesh,
+                                   axes=axes, rows=B)
 
-    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x)
+    group = None if mesh is None else mesh.group(*(a for a in (ep_axis, TP) if a))
+    combine = combine.to(h.dtype)
+    dispatch = dispatch.to(h.dtype)
+    if group is not None:
+        # This process's experts' slots; x and the combine weights enter
+        # through copy, so their gradients sum the (ep, tp) members' parts.
+        n_local = lp["w_gate_e"].shape[0]
+        lo = (mesh.axis_index(ep_axis) if ep_axis else 0) * n_local
+        x = col.copy(x, group)
+        combine = col.copy(combine, group)[:, lo:lo + n_local]
+        dispatch = dispatch[:, lo:lo + n_local]
+    xe = torch.einsum("tec,td->ecd", dispatch, x)
     g = torch.einsum("ecd,edf->ecf", xe, lp["w_gate_e"])
     u = torch.einsum("ecd,edf->ecf", xe, lp["w_up_e"])
     ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["w_down_e"])
-    y = torch.einsum("tec,ecd->td", combine.to(h.dtype), ye)
+    y = col.psum(torch.einsum("tec,ecd->td", combine, ye), group)
     return y.reshape(B, S, D), aux
 
 
@@ -197,36 +259,41 @@ def moe_layer_params(params: dict, i: int) -> dict:
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MoeConfig, *, mesh=None,
             seq_axis: str | None = None, ep_axis: str | None = None,
-            remat=False):
+            remat=False, ring: bool = True):
     """fp32 logits and the summed router aux loss for a (B, S) token batch;
-    ``remat`` as the dense family's (:func:`llama._remat_wrap`)."""
+    ``remat`` as the dense family's (:func:`llama._remat_wrap`). With
+    ``mesh``, the logits are this process's block (its tokens, its vocab
+    columns under ``tp``)."""
     x, aux_total = forward_hidden(params, tokens, cfg, mesh=mesh,
                                   seq_axis=seq_axis, ep_axis=ep_axis,
-                                  remat=remat)
+                                  remat=remat, ring=ring)
     return final_logits(params, x, cfg), aux_total
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoeConfig, *,
                    mesh=None, seq_axis: str | None = None,
-                   ep_axis: str | None = None, remat=False):
+                   ep_axis: str | None = None, remat=False, ring: bool = True):
     """Final hidden states (pre-``ln_out``) and the summed router aux. Each
     stacked leaf is unbound once, so its gradient is one stack of the
-    layers' gradients."""
-    _no_mesh(mesh, ep_axis)
+    layers' gradients. With ``mesh``: this process's shards, attention as
+    the dense family's (``tp``, the ring over ``seq_axis``), the expert
+    layer over ``ep_axis`` with global routing."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
-    positions = torch.arange(S, device=tokens.device)
+    x = llama.embed(params, tokens, cfg, mesh)
+    positions = llama.positions_of(S, mesh, seq_axis, tokens.device)
     attend = llama.make_attend(S, mesh, seq_axis, window=cfg.window,
-                               device=tokens.device)
+                               device=tokens.device, ring=ring)
+    tp = llama.tp_group(mesh)
 
     def one_block(x, lp):
         box = {}
 
         def mlp(hn):
-            y, box["aux"] = moe_ffn(hn, lp, cfg)
+            y, box["aux"] = moe_ffn(hn, lp, cfg, mesh=mesh, ep_axis=ep_axis,
+                                    seq_axis=seq_axis)
             return y
 
-        out = block(cfg, x, lp, positions, attend, mlp=mlp)
+        out = block(cfg, x, lp, positions, attend, mlp=mlp, tp=tp)
         return out, box["aux"]
 
     one_block = llama._remat_wrap(one_block, remat)
@@ -239,10 +306,17 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: MoeConfig, *,
 
 
 def loss_fn(params, tokens, cfg: MoeConfig, *, ce_block: int | None = None,
-            **kw) -> torch.Tensor:
+            mesh=None, **kw) -> torch.Tensor:
     """Next-token cross entropy plus the weighted router load-balancing
     loss; ``ce_block`` switches to the dense family's
-    :func:`llama.blocked_cross_entropy` (the same ln_out/lm_head leaves)."""
+    :func:`llama.blocked_cross_entropy` (the same ln_out/lm_head leaves).
+    With a ``mesh`` of more than one process: this process's shards, and
+    the global loss on every process."""
+    if mesh is not None and mesh.size > 1:
+        x, aux = forward_hidden(params, tokens, cfg, mesh=mesh, **kw)
+        ce = llama.sharded_cross_entropy(params, x, tokens, cfg, mesh,
+                                         kw.get("seq_axis"), ce_block)
+        return ce + cfg.router_aux_weight * aux
     if ce_block is not None:
         x, aux = forward_hidden(params, tokens, cfg, **kw)
         ce = llama.blocked_cross_entropy(params, x, tokens[:, 1:], cfg,
@@ -264,12 +338,16 @@ def mlp_of(cfg: MoeConfig, mesh=None, ep_axis: str | None = None):
     decoders). Memoised on (cfg, mesh, ep_axis), as in the JAX module:
     equal configs share one callable, so a graphed step bound to it
     (``kv_paging.hooked_step``) is one graph cache key, not one a
-    decoder."""
-    _no_mesh(mesh, ep_axis)
+    decoder. With ``mesh``/``ep_axis`` each decode FFN runs this process's
+    experts and sums over ``ep`` (a mesh without ``tp``: the decode
+    attention takes whole heads)."""
+    if mesh is not None and mesh.axis_size(TP) > 1:
+        raise ValueError("the decode hooks take expert parallelism only: "
+                         "a mesh with tp > 1 splits the attention heads")
 
     def of(lp):
         def mlp(hn):
-            return moe_ffn(hn, lp, cfg)[0]
+            return moe_ffn(hn, lp, cfg, mesh=mesh, ep_axis=ep_axis)[0]
 
         return mlp
 

@@ -63,6 +63,8 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
 # optax.adamw's defaults, which the JAX package keeps: b1, b2, eps (its
 # eps_root is 0.0, and adding it changes no value).
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# Elements a leaf updates at a time (256 MB of each float32 temporary).
+CHUNK = 1 << 26
 
 
 class AdamW:
@@ -108,18 +110,35 @@ class AdamW:
             m_dt = torch.promote_types(g.dtype, mu.dtype)
             v_dt = torch.promote_types(g.dtype, nu.dtype)
             u_dt = torch.promote_types(torch.promote_types(m_dt, v_dt), p.dtype)
-            crossing = mu.device != p.device
-            mu_in = mu.to(p.device, non_blocking=True).float()
-            nu_in = nu.to(p.device, non_blocking=True).float()
-            gf = g.float()
-            m = gf * _scalar(1 - B1, g.dtype) + mu_in * _scalar(B1, mu.dtype)
-            v = (gf * gf) * _scalar(1 - B2, g.dtype) + nu_in * _scalar(B2, nu.dtype)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + _scalar(EPS, v_dt))
-            u = u + p.float() * _scalar(self.weight_decay, p.dtype)
-            p.copy_(p.float() + u * _scalar(-self.lr, u_dt))
-            mu.copy_(m.to(mu.dtype), non_blocking=crossing)
-            nu.copy_(v.to(nu.dtype), non_blocking=crossing)
+            c = (_scalar(1 - B1, g.dtype), _scalar(B1, mu.dtype),
+                 _scalar(1 - B2, g.dtype), _scalar(B2, nu.dtype),
+                 _scalar(EPS, v_dt), _scalar(self.weight_decay, p.dtype),
+                 _scalar(-self.lr, u_dt))
+            # Elementwise, so a leaf updates in chunks: the float32
+            # temporaries stay at a few chunks, not a few leaves (a Mixtral
+            # expert leaf is 3.8 GB in float32), and every element's
+            # arithmetic is the same.
+            pf, gf, muf, nuf = (p.view(-1), g.reshape(-1), mu.view(-1),
+                                nu.view(-1))
+            for lo in range(0, pf.numel(), CHUNK):
+                sl = slice(lo, lo + CHUNK)
+                self._update(pf[sl], gf[sl], muf[sl], nuf[sl], bc1, bc2, c)
         return state
+
+    @staticmethod
+    def _update(p, g, mu, nu, bc1, bc2, c) -> None:
+        b1c, b1, b2c, b2, eps, wd, neg_lr = c
+        crossing = mu.device != p.device
+        mu_in = mu.to(p.device, non_blocking=True).float()
+        nu_in = nu.to(p.device, non_blocking=True).float()
+        gf = g.float()
+        m = gf * b1c + mu_in * b1
+        v = (gf * gf) * b2c + nu_in * b2
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        u = u + p.float() * wd
+        p.copy_(p.float() + u * neg_lr)
+        mu.copy_(m.to(mu.dtype), non_blocking=crossing)
+        nu.copy_(v.to(nu.dtype), non_blocking=crossing)
 
 
 def adamw(lr: float, weight_decay: float = 0.01,

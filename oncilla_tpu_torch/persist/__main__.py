@@ -109,16 +109,31 @@ def _cluster_run(seed: int) -> dict:
             if d.frz_counters["promotes"] < 1:
                 raise AssertionError("reads never promoted from FROZEN")
             d._pressure_evict()  # re-freeze before the hard kill
-            nfrozen = sum(1 for e in d.registry.snapshot() if e.frozen)
-            if nfrozen < 1:
+            if not any(e.frozen for e in d.registry.snapshot()):
                 raise AssertionError("no frozen extents before the kill")
+            at_kill = {}
+
+            def restart(rank):
+                # Count what the daemon holds frozen when it dies, not
+                # before: its reaper demotes every heartbeat, so a count
+                # taken earlier may miss an extent it froze since. Kill,
+                # wait for the reaper's last pass, count, then boot.
+                old = cl.daemons[rank]
+                old.kill()
+                for t in old._threads:
+                    if t.name.endswith("-reaper"):
+                        t.join(timeout=30.0)
+                at_kill["nfrozen"] = sum(
+                    1 for e in old.registry.snapshot() if e.frozen)
+                return cl.restart(rank)
+
             controller = ChaosController(
-                ChaosSchedule(seed=seed), cl.entries,
-                restart_fn=cl.restart,
+                ChaosSchedule(seed=seed), cl.entries, restart_fn=restart,
             )
             # The client stays LIVE across the restart — a daemon crash
             # must not be mistaken for the app disconnecting.
             controller.force("restart", 0)
+            nfrozen = at_kill["nfrozen"]
             d2 = cl.daemons[0]
             if d2.frz_counters["warm_boot_extents"] != nfrozen:
                 raise AssertionError(

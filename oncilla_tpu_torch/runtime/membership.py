@@ -251,3 +251,35 @@ def detect_rank(entries: list[NodeEntry]) -> int:
     except (ImportError, RuntimeError) as e:
         printd("detect_rank: torch.distributed probe failed: %s", e)
     raise OcmError(f"hostname {hostname!r} not present in nodefile")
+
+
+def torch_membership(base_port: int, hosts: list[str] | None = None
+                     ) -> tuple[list[NodeEntry], int]:
+    """Membership from ``torch.distributed``: one daemon a process, rank
+    the process group's rank (the JAX package's ``jax_membership``, with
+    ``jax.process_index`` its counterpart). The process group does not
+    carry peer hostnames, so a job spread over hosts passes ``hosts`` or
+    sets ``OCM_HOSTS`` to a comma-separated list ordered by rank (the
+    nodefile's equivalent); a world of one, or no process group, is
+    ``localhost``. Rank r's daemon listens on ``base_port + r``."""
+    import os
+
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    if hosts is None:
+        env = os.environ.get("OCM_HOSTS")
+        hosts = [h.strip() for h in env.split(",")] if env else None
+    if hosts is None:
+        if n > 1:
+            raise OcmError(
+                "multi-host membership needs hostnames: pass hosts= or set "
+                "OCM_HOSTS=host0,host1,... ordered by the process group's rank"
+            )
+        hosts = ["localhost"]
+    if len(hosts) != n:
+        raise OcmError(f"got {len(hosts)} hosts for {n} processes")
+    entries = [NodeEntry(rank=i, host=hosts[i], port=base_port + i)
+               for i in range(n)]
+    return entries, dist.get_rank() if live else 0

@@ -1,7 +1,6 @@
 """Input pipeline: host batches -> device tensors, with the copies
-overlapping the consumer's compute. The one-device form of
-``oncilla_tpu/utils/data.py`` (whose ``prefetch_to_mesh`` waits for the
-sharded slice of the port).
+overlapping the consumer's compute: the counterpart of
+``oncilla_tpu/utils/data.py``.
 
 While step N computes, step N+1's batch is already crossing the host ->
 card link: up to ``depth`` batches are copied ahead of the one being
@@ -11,6 +10,11 @@ event recorded after the copies, and each tensor is marked as used on the
 consumer's stream (``record_stream``), so the allocator does not hand its
 memory out again while the consumer's work on it is still queued. On the
 CPU a leaf is copied into a tensor of its own.
+
+On a mesh (:func:`prefetch_to_mesh`) each process receives its slice of
+every batch under a ``PartitionSpec`` (``data_spec()``'s dp and sp, say):
+the slice is cut on the host and only it crosses the link, where the JAX
+package ``device_put``s the global batch under a ``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -48,12 +52,27 @@ def prefetch_to_device(batches: Iterable, device=None, depth: int = 2) -> Iterat
     return prefetch_sharded(batches, lambda leaf: dev, depth=depth)
 
 
+def prefetch_to_mesh(batches: Iterable, mesh, spec, depth: int = 2) -> Iterator:
+    """Yield this process's slice of each of ``batches`` under ``spec``
+    over ``mesh`` (a ``PartitionSpec`` of
+    :mod:`oncilla_tpu_torch.parallel.mesh`), on the mesh's device, keeping
+    up to ``depth`` transfers in flight ahead of the consumer. Every leaf
+    gets the same spec (:func:`prefetch_sharded` takes one a leaf)."""
+    from oncilla_tpu_torch.parallel.mesh import NamedSharding
+
+    sharding = NamedSharding(mesh, spec)
+    return prefetch_sharded(batches, lambda leaf: sharding, depth=depth)
+
+
 def prefetch_sharded(batches: Iterable, device_of: Callable,
                      depth: int = 2) -> Iterator:
-    """General form: ``device_of(leaf)`` picks each leaf's device.
+    """General form: ``device_of(leaf)`` picks each leaf's device, or its
+    ``NamedSharding`` (the leaf's slice goes to the mesh's device).
 
     A plain function, not a generator, so ``depth`` is validated and the
     first copies start at construction, not at the first ``next()``."""
+    from oncilla_tpu_torch.parallel.mesh import NamedSharding, shard
+
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     queue: collections.deque = collections.deque()
@@ -63,7 +82,11 @@ def prefetch_sharded(batches: Iterable, device_of: Callable,
     def place(leaf):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(leaf))
-        dev = torch.device(device_of(leaf))
+        where = device_of(leaf)
+        if isinstance(where, NamedSharding):
+            t = shard(t, where.mesh, where.spec, device=t.device)
+            where = where.mesh.device
+        dev = torch.device(where)
         if dev.type != "cuda":
             return t.to(dev, copy=True)  # never an alias of the producer's
         if t.device.type == "cpu" and not t.is_pinned():

@@ -57,6 +57,19 @@ def test_full_budget_banks_every_stage(stubbed):
     assert verdicts["dcn banked and verified"] == "PASS"
 
 
+def test_without_the_tail_the_wire_runs_once(stubbed, monkeypatch):
+    """``dcn_tail=False`` (chip_smoke.py's bench): the early echo is banked
+    and graded, the wire runs once."""
+    calls = []
+    monkeypatch.setattr(bench, "bench_dcn", lambda errors, **kw: calls.append(1) or {
+        "put_gbps": 1.9, "get_gbps": 1.2, "unit": "Gbit/s", "verified": True})
+    out = bench.run("cpu", deadline_s=3600.0, timing=False,
+                    copy_kw=BENCH_TINY["copy_kw"], dcn_tail=False)
+    assert out["ok"] is True and len(calls) == 1
+    verdicts = {name: v for name, v, _ in check.grade(out)}
+    assert verdicts["dcn banked and verified"] == "PASS"
+
+
 def test_truncated_budget_still_banks_cheap_graded_stages(stubbed):
     """With ~9 minutes of budget, the ceiling, the gb_sweep and the early
     wire echo bank whatever the later stages do."""

@@ -162,8 +162,18 @@ def test_block_mlp_hook(params):
 
 
 def test_make_attend_refuses_a_sequence_axis():
-    with pytest.raises(NotImplementedError, match="ROADMAP A 3"):
-        tl.make_attend(8, mesh=object(), seq_axis="sp")
+    """A sequence axis runs ring attention over the mesh's process group
+    (``tests/test_torch_ring_attention.py``): a mesh without one (a layout)
+    refuses it, and an axis of size 1 is the dense attention."""
+    from oncilla_tpu_torch.models import train
+
+    g = torch.Generator().manual_seed(0)
+    q, k = torch.randn(1, 4, 8, 16, generator=g), torch.randn(1, 2, 8, 16, generator=g)
+    attend = tl.make_attend(8, mesh=train.make_mesh(4, device="cpu"), seq_axis="sp")
+    with pytest.raises(RuntimeError, match="layout"):
+        attend(q, k, k)
+    one = tl.make_attend(8, mesh=train.make_mesh(1, device="cpu"), seq_axis="sp")
+    assert torch.equal(one(q, k, k), tl.make_attend(8)(q, k, k))
 
 
 @pytest.mark.parametrize("sq,sk,window", [(5, 5, None), (3, 7, None), (6, 6, 2), (4, 9, 3)])

@@ -240,18 +240,29 @@ def test_generate_matches_jax(rng):
 
 
 def test_mesh_and_sequence_axes_raise():
+    """The mesh arguments shard the family over a process group
+    (``tests/test_torch_moe_train.py``). A mesh without one (a layout)
+    raises; the decode hooks refuse a mesh that splits the heads; an axis
+    named without a mesh changes nothing, as in the JAX module."""
+    from oncilla_tpu_torch.models import train
+
     cfg = tmoe.MoeConfig.tiny()
     params = tmoe.init_moe_params(cfg, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    h = torch.zeros(1, 4, cfg.dim)
+    h = torch.randn(1, 4, cfg.dim, generator=torch.Generator().manual_seed(0))
     lp = tmoe.moe_layer_params(params, 0)
-    for call in (lambda: tmoe.moe_ffn(h, lp, cfg, ep_axis="ep"),
-                 lambda: tmoe.moe_ffn(h, lp, cfg, mesh=object()),
-                 lambda: tmoe.forward(params, toks, cfg, ep_axis="ep"),
-                 lambda: tmoe.forward(params, toks, cfg, seq_axis="sp"),
-                 lambda: tmoe.paged_hooks(cfg, ep_axis="ep")):
-        with pytest.raises(NotImplementedError, match="A 3"):
+    layout = train.make_moe_mesh(4, device="cpu")  # (1, 2, 2), no group
+    dense = train.make_mesh(4, device="cpu")       # (1, 2, 2), no group
+    for call in (lambda: tmoe.moe_ffn(h, lp, cfg, mesh=layout, ep_axis="ep"),
+                 lambda: tmoe.forward(params, toks, cfg, mesh=layout, ep_axis="ep"),
+                 lambda: tmoe.forward(params, toks, cfg, mesh=dense, seq_axis="sp")):
+        with pytest.raises(RuntimeError, match="layout"):
             call()
+    with pytest.raises(ValueError, match="tp"):
+        tmoe.paged_hooks(cfg, mesh=layout, ep_axis="ep")
+    y, aux = tmoe.moe_ffn(h, lp, cfg, ep_axis="ep")
+    y0, aux0 = tmoe.moe_ffn(h, lp, cfg)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
 # -- the paged decoders -----------------------------------------------------

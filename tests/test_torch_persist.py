@@ -256,6 +256,36 @@ def test_persist_smoke_returns_zero():
     assert smoke(7) == 0
 
 
+def test_persist_smoke_counts_a_demotion_just_before_the_kill(monkeypatch):
+    """The persist smoke's warm-boot count against a demotion its reaper
+    makes between the count and the restart (ROADMAP Queue C): every
+    resident extent of the daemon is demoted as it is killed, so a count
+    taken before the kill misses them and the warm boot adopts more
+    extents than it; the smoke counts the frozen extents at the kill."""
+    import dataclasses
+
+    from oncilla_tpu_torch.persist.__main__ import _cluster_run
+    from oncilla_tpu_torch.runtime.daemon import Daemon
+
+    real_kill = Daemon.kill
+    forced = []
+
+    def kill_after_a_demotion(self):
+        if not forced:
+            before = sum(1 for e in self.registry.snapshot() if e.frozen)
+            self.config = dataclasses.replace(self.config, arena_high_pct=1,
+                                              arena_low_pct=1)
+            self._pressure_evict()
+            forced.append(sum(1 for e in self.registry.snapshot()
+                              if e.frozen) - before)
+        real_kill(self)
+
+    monkeypatch.setattr(Daemon, "kill", kill_after_a_demotion)
+    run = _cluster_run(7)
+    assert forced and forced[0] >= 1
+    assert run["ok"] == run["nfrozen"] == 4
+
+
 def test_phase_8d_on_the_cpu():
     """``chip_smoke.phase_warmboot`` at a tiny size: every check but the
     launch counts (no kernels on the CPU) and the TTFT comparison, which on
