@@ -104,10 +104,22 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    seat by their workers' timing), every COLD page read back over the wire
    the bytes put (a host copy kept beside the client), ``cold_sim`` False, COLD puts/gets equal the
    client's wire transfers, HOT puts/gets the K1/K2 launches, every daemon
-   drained. It prints REMOTE_HOST put/get GB/s at one page and 1 GiB
-   from/to card and pinned tensors (median of 5) beside a pinned host ->
-   card ``copy_``, alloc/free p50 through the daemons, and F's and G's
-   tokens/s beside E's and C's.
+   drained; (f) the C client library (``runtime/cluster.build_lib``,
+   ``libocm_tpu.so`` and ``ocm_c_demo`` built from the checkout's sources
+   with g++ and gcc), after the app's tini, behind a controller at rank 0
+   whose ``IciDataPlane`` has the same 4 rows: the demo app runs its three
+   journeys on REMOTE_DEVICE at 16 MiB as a process of its own holding no
+   card, then this process drives the library through ctypes at rank 1:
+   128 MiB of seeded bytes put into a daemon-placed REMOTE_DEVICE handle,
+   the controller's ``ctx.get`` on the card row and the library's
+   ``ocmc_get`` both equal to them, and K1/K2 launches equal to the
+   ``PLANE_PUT``/``PLANE_GET`` ops the plane server served (the count
+   ``launches_libocm``). It prints REMOTE_HOST put/get GB/s at one page and
+   1 GiB from/to card and pinned tensors (median of 5) beside a pinned
+   host -> card ``copy_``, alloc/free p50 through the daemons, F's and G's
+   tokens/s beside E's and C's, and the C library's relayed put/get GB/s
+   at 16 and 128 MiB beside a plane-less Python client's on the same
+   handle and check (c)'s second process.
 8b. daemons_py — the port's Python daemons (``python -m
    oncilla_tpu_torch.runtime.daemon``), right after phase 8 while the
    weights are on the card. On two of them, sized as phase 8's pair: (a)
@@ -1722,10 +1734,139 @@ def wire_placed(ctx, plane, nodefile: str, n: int, count: int) -> dict:
             "second_process_s": second_s}
 
 
+# Check (f)'s sizes: the demo app's journey at the first, the library's
+# own put and get at both, the last the handle's size.
+WIRE_LIBOCM = (16 * MiB, 128 * MiB)
+WIRE_LIBOCM_SEED = 17  # the bytes check (f) puts through the library
+_KIND_REMOTE_DEVICE = 2  # ocm_client.h OCMC_KIND_REMOTE_DEVICE
+
+
+def wire_libocm(cl, device, row_bytes: int, sizes=WIRE_LIBOCM, reps: int = 3,
+                check_launches: bool = True) -> dict:
+    """Check (f): the C client library's device leg on the card. Builds
+    ``libocm_tpu.so`` and ``ocm_c_demo``; a controller at rank 0 serves an
+    ``IciDataPlane`` of 4 ``row_bytes`` rows on ``device`` (two a rank, as
+    the daemons book them). With the launch counts from 0: the demo app,
+    a process of its own holding no card, runs its three journeys on
+    REMOTE_DEVICE at ``sizes[0]`` bytes; then the library, through ctypes
+    in this process at rank 1, allocates ``sizes[-1]`` bytes of
+    REMOTE_DEVICE and puts and gets each size ``reps`` times (timed),
+    ending with ``sizes[-1]`` seeded bytes in the handle. K1 and K2 must
+    have launched once a relayed PLANE_PUT and PLANE_GET. Then the
+    controller's ``ctx.get`` of the handle, on its card row, and the
+    library's ``ocmc_get`` must both return those bytes, and a plane-less
+    Python client at rank 1 times the same puts and gets beside the
+    library's."""
+    import ctypes
+
+    import oncilla_tpu_torch as ocm
+    from oncilla_tpu_torch.core.arena import Extent
+    from oncilla_tpu_torch.ops import dma
+    from oncilla_tpu_torch.ops.ici import IciDataPlane
+    from oncilla_tpu_torch.runtime.cluster import (BUILD_DIR, OcmcHandle, build_lib,
+                                                   load_lib)
+
+    t_check = time.perf_counter()
+    lib = load_lib(build_lib())
+    build_s = time.perf_counter() - t_check
+    plane = IciDataPlane(ocm.OcmConfig(device_arena_bytes=row_bytes),
+                         devices=[device] * 4, devices_per_rank=2)
+    ctx = ocm.ocm_init(ocm.OcmConfig(nodefile=cl.nodefile, rank=0,
+                                     host_arena_bytes=MiB, device_arena_bytes=MiB),
+                       device=device, ici_plane=plane)
+    server = ctx._remote._plane_server
+    n = sizes[-1]
+    data = np.random.default_rng(WIRE_LIBOCM_SEED).integers(0, 256, n, dtype=np.uint8)
+    out = np.zeros(n, dtype=np.uint8)
+    vp = ctypes.c_void_p
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"libocm {what}: {lib.ocmc_last_error(lctx)}")
+
+    lctx = None
+    try:
+        # The main path: counts from 0 just before, read just after.
+        served = dict(server.served)
+        dma.reset_launches()
+        t0 = time.perf_counter()
+        demo = subprocess.run(
+            [str(BUILD_DIR / "ocm_c_demo"), cl.nodefile, "1", str(sizes[0]), "2",
+             "device"], capture_output=True, text=True, timeout=300,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        demo_s = time.perf_counter() - t0
+        if demo.returncode != 0 or demo.stdout.count("pass:") != 3:
+            raise AssertionError(f"ocm_c_demo exited {demo.returncode}:\n"
+                                 f"{demo.stdout[-3000:]}{demo.stderr[-3000:]}")
+        lctx = lib.ocmc_init(cl.nodefile.encode(), 1, 0.0)
+        if not lctx:
+            raise AssertionError(f"ocmc_init: {lib.ocmc_last_error(None)}")
+        h = OcmcHandle()
+        check(lib.ocmc_alloc(lctx, n, _KIND_REMOTE_DEVICE, ctypes.byref(h)), "alloc")
+        rates = []
+        for m in sizes:
+            src, dst = vp(data.ctypes.data), vp(out.ctypes.data)
+            rec = {"nbytes": m, "reps": reps}
+            for name, fn in (("c_put", lambda: check(lib.ocmc_put(
+                    lctx, ctypes.byref(h), src, m, 0), "put")),
+                             ("c_get", lambda: check(lib.ocmc_get(
+                    lctx, ctypes.byref(h), dst, m, 0), "get"))):
+                rec[name + "_gbps"] = m / _median_s(fn, reps, device) / 1e9
+            if not np.array_equal(out[:m], data[:m]):
+                raise AssertionError(f"libocm get of {m} B differs from its put")
+            rates.append(rec)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        rose = dma.launches()
+        relayed = {k: v - served[k] for k, v in server.served.items()}
+        if relayed["PLANE_PUT"] < 1 or relayed["PLANE_GET"] < 1:
+            raise AssertionError(f"no relay through the plane server: {relayed}")
+        if check_launches and (rose["write_rows"] != relayed["PLANE_PUT"]
+                               or rose["read_rows"] != relayed["PLANE_GET"]):
+            raise AssertionError(f"relayed ops {relayed} but launches {rose}")
+
+        # The controller's view of the library's handle, on the card row.
+        view = ocm.OcmAlloc(alloc_id=h.alloc_id, kind=ocm.OcmKind.REMOTE_DEVICE,
+                            fabric=ocm.Fabric.ICI, nbytes=n, rank=h.rank,
+                            device_index=h.device_index, extent=Extent(h.offset, n),
+                            origin_rank=1)
+        view.daemon_owned = True
+        got = ctx.get(view)
+        want = torch.from_numpy(data).to(got.device)
+        if got.device != plane.device_of(view) or not torch.equal(got, want):
+            raise AssertionError("the controller does not read the library's bytes")
+        out[:] = 0
+        check(lib.ocmc_get(lctx, ctypes.byref(h), vp(out.ctypes.data), n, 0), "get")
+        if not np.array_equal(out, data):
+            raise AssertionError("ocmc_get does not return the bytes put")
+
+        # A plane-less Python client on the same handle, for the rates beside.
+        py = cl.client(1, heartbeat=False, app_id=os.getpid() + (2 << 32))
+        host = torch.from_numpy(data)
+        for rec in rates:
+            m = rec["nbytes"]
+            rec["py_put_gbps"] = m / _median_s(
+                lambda: py.put(view, host[:m], 0), reps, device) / 1e9
+            rec["py_get_gbps"] = m / _median_s(
+                lambda: py.get(view, m, 0), reps, device) / 1e9
+        check(lib.ocmc_free(lctx, ctypes.byref(h)), "free")
+    finally:
+        if lctx:
+            lib.ocmc_tini(lctx)
+        ctx.tini()
+    if any(cl.status(r)["live_allocs"] for r in range(2)):
+        raise AssertionError("allocations left after the library's free")
+    return {"build_s": build_s, "demo": {"nbytes": sizes[0], "seconds": demo_s,
+                                         "passes": demo.stdout.count("pass:")},
+            "nbytes": n, "rows": [h.rank, h.device_index], "rates": rates,
+            "relayed": relayed, "launches": rose,
+            "seconds": time.perf_counter() - t_check}
+
+
 def phase_wire(device, *, row_bytes: int = WIRE_ROW, host_bytes=WIRE_HOST,
                sizes=WIRE_SIZES, matrix_bytes: int = PAGE, timed=(PAGE, GiB),
                reps: int = 5, alloc_iters: int = 200, placed=(PAGE, 4),
-               engine=None, check_launches: bool = True) -> dict:
+               libocm=WIRE_LIBOCM, engine=None, check_launches: bool = True) -> dict:
     """Phase 8, the wire: two daemons of the port's copy
     (``runtime/cluster.local_cluster(2)``), a 4-row ``SpmdIciPlane`` of
     ``row_bytes`` rows on the card, and the app ``ocm_init(OcmConfig(
@@ -1736,7 +1877,9 @@ def phase_wire(device, *, row_bytes: int = WIRE_ROW, host_bytes=WIRE_HOST,
     runs=<phase 5b's runs, C and E among them>)``, optionally ``kw=``
     further ``phase_engine`` arguments), (e) serving runs F and G, E and C
     with their COLD tier on rank 1 behind a client that declares PRIO_LOW
-    (:func:`check_remote_cold`). Raises on the first check that fails."""
+    (:func:`check_remote_cold`), and (f) the C client library at
+    ``libocm`` sizes (:func:`wire_libocm`). Raises on the first check that
+    fails."""
     import oncilla_tpu_torch as ocm
     from oncilla_tpu_torch import OcmKind
     from oncilla_tpu_torch.ops import dma
@@ -1928,6 +2071,21 @@ def phase_wire(device, *, row_bytes: int = WIRE_ROW, host_bytes=WIRE_HOST,
             log(f"[wire] (e) runs F and G: {json.dumps(report['engine'])}")
             report["launches"] = {k: v + fg["F"]["launches"][k] + fg["G"]["launches"][k]
                                   for k, v in report["launches"].items()}
+
+        # (f) the C client library's device leg, on the same daemons.
+        report["libocm"] = lib = wire_libocm(cl, device, row_bytes, libocm,
+                                             check_launches=check_launches)
+        report["build_s"] += lib["build_s"]
+        log(f"[wire] (f) libocm in {lib['seconds']:.3f} s: build "
+            f"{lib['build_s']:.3f} s, ocm_c_demo on "
+            f"REMOTE_DEVICE at {lib['demo']['nbytes']} B {lib['demo']['passes']} "
+            f"passes in {lib['demo']['seconds']:.3f} s; {lib['nbytes']} B put by C "
+            f"read back bit for bit by the controller on row {lib['rows']} and by "
+            f"ocmc_get; relayed {json.dumps(lib['relayed'])}, launches "
+            f"{json.dumps(lib['launches'])}; GB/s (median of 3) "
+            f"{json.dumps(lib['rates'])} beside check (c)'s plane-less Python "
+            f"process ({report['placed']['nbytes']} B, "
+            f"{report['placed']['second_process_s']:.3f} s)")
     if on_card:
         torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t_phase
@@ -4749,6 +4907,7 @@ def main(argv=None) -> int:
 
     main_path = {"ocm_test": loop_launches, "serving": serving["launches"],
                  "serving_engine": engine_launches, "wire": wire["launches"],
+                 "libocm": wire["libocm"]["launches"],
                  "daemon_py": daemons_py["launches"], "client": client["launches"],
                  "warmboot": warmboot["launches"],
                  # 8e and the harness's own processes (its smoke in 8e, its
@@ -4804,7 +4963,7 @@ def main(argv=None) -> int:
         "engine_batched_vs_interleaved": engine["batched_vs_interleaved"],
         "wire": {k: wire[k] for k in ("build_s", "alloc_p50_us", "free_p50_us",
                                       "rates", "placed", "errors", "engine",
-                                      "seconds")},
+                                      "libocm", "seconds")},
         "daemons_py": {k: daemons_py[k] for k in (
             "remote_host", "placed", "kv", "resilient", "qos", "no_card",
             "seconds")},

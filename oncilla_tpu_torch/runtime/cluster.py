@@ -23,12 +23,19 @@ both packages.
     with local_cluster(3, daemon="python",
                        env={"OCM_REPLICAS": "2"}) as cl: ...
 
-:func:`build_daemon` needs a C++ compiler (``g++``, ``c++`` or
-``clang++``); without one it raises, and nothing falls back.
+The builds, each cached on a stamp of its own in ``build/oncilla_tpu_torch/``:
+:func:`build_daemon` (``oncillamemd``; ``tsan=True``, ``oncillamemd_tsan``)
+and :func:`build_lib` (the C client library ``libocm_tpu.so`` and its demo
+app ``ocm_c_demo``, the JAX package's ``native.py`` ``build_lib``;
+:func:`load_lib` binds it through ctypes, its handle :class:`OcmcHandle`). They
+need a C++ compiler (``g++``, ``c++`` or ``clang++``), the library a C one
+too (``gcc`` or ``cc``); without one they raise, and nothing falls back.
+:func:`spawn` starts one native daemon process, its output in a file.
 """
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
@@ -47,11 +54,18 @@ from oncilla_tpu_torch.runtime.protocol import Message, MsgType, request
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "oncilla_tpu_torch"
-BINARY = BUILD_DIR / "oncillamemd"
 _UNITS = ("daemon.cc", "protocol.cc", "obs.cc")
 _HEADERS = ("protocol.hh", "obs.hh", "arena.hh", "net.hh", "membership.hh")
-# The flag set of the JAX package's direct build (native.py:114-119).
-_CXXFLAGS = ("-std=c++17", "-Wall", "-Wextra", "-pthread", "-O2")
+# The C client library (CMake targets ``ocm_tpu`` and ``ocm_c_demo``).
+_LIB_UNITS = ("libocm.cc", "protocol.cc")
+_DEMO = "ocm_c_demo.c"
+# The flag sets of the JAX package's build (CMakeLists.txt, native.py:114-119):
+# the daemon at -O2, or with ThreadSanitizer at -O1 in its place.
+_CXXFLAGS = ("-std=c++17", "-Wall", "-Wextra", "-pthread")
+_OPT = ("-O2",)
+_TSAN = ("-fsanitize=thread", "-g", "-O1")
+_LIB_FLAGS = (*_CXXFLAGS, *_OPT, "-fPIC")
+_CFLAGS = ("-Wall", "-Wextra", "-O2")
 # Rank 0's placement policy, and how long the daemons get to join.
 _POLICY = "capacity"
 _START_TIMEOUT_S = 30.0
@@ -61,77 +75,222 @@ _PY_START_TIMEOUT_S = 90.0
 _REPO = Path(__file__).resolve().parents[2]
 
 
-def _fingerprint(cxx: str) -> str:
-    """A hash of the sources, the headers, the compiler and the flags."""
+def _fingerprint(names, tools) -> str:
+    """A hash of the named sources and of every header beside them (a new
+    header counts), with the compilers and flags in ``tools``."""
     h = hashlib.sha256()
-    for name in (*_UNITS, *_HEADERS):
+    headers = {p.name for pat in ("*.hh", "*.h") for p in NATIVE_DIR.glob(pat)}
+    for name in sorted({*names, *headers}):
         h.update(name.encode() + b"\0" + (NATIVE_DIR / name).read_bytes() + b"\0")
-    h.update(" ".join((cxx, *_CXXFLAGS)).encode())
+    h.update(" ".join(tools).encode())
     return h.hexdigest()
 
 
-def _compiler() -> str:
-    for cand in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+def _tool(what: str, env: str, names: tuple, kind: str) -> str:
+    for cand in (os.environ.get(env), *names):
         if cand and shutil.which(cand):
             return shutil.which(cand)
-    raise OcmError("cannot build the daemon: no C++ compiler (g++, c++ or "
-                   "clang++) on PATH")
+    raise OcmError(f"cannot build the {what}: no {kind} compiler "
+                   f"({', '.join(names)}) on PATH")
 
 
-def build_daemon() -> Path:
-    """Compile ``runtime/native/`` into ``build/oncilla_tpu_torch/
-    oncillamemd`` unless the binary there was built from these exact
-    sources (its ``.srchash`` stamp). The three units compile at once;
-    concurrent callers (test workers) take turns on a lock file, so one
-    compiles and the rest find its binary, and binary and stamp are
-    installed by ``os.replace`` of temporary files, so no reader sees a
-    partial file.
-    Raises with the compiler's output when the build fails."""
-    cxx = _compiler()
-    fp = _fingerprint(cxx)
-    stamp = BINARY.with_name(BINARY.name + ".srchash")
+def _compiler(what: str = "daemon") -> str:
+    return _tool(what, "CXX", ("g++", "c++", "clang++"), "C++")
+
+
+def _c_compiler(what: str = "library") -> str:
+    return _tool(what, "CC", ("gcc", "cc"), "C")
+
+
+def _stamp(target: Path) -> Path:
+    return target.with_name(target.name + ".srchash")
+
+
+def _cached_build(targets: tuple, fp: str, make) -> Path:
+    """Return ``targets[0]`` once every target was built from exactly the
+    inputs ``fp`` hashes (the first target's ``.srchash`` stamp), else
+    build them with ``make(work_dir)``, which leaves each target's file
+    under its name in ``work_dir``. Concurrent callers (test workers) take
+    turns on a lock file, so one compiles and the rest find its files, and
+    files and stamp are installed by ``os.replace`` of temporary files, so
+    no reader sees a partial file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # One builder at a time: the others wait here, then find the binary.
+    stamp = _stamp(targets[0])
+    # One build at a time: the other callers wait here, then find the files.
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if BINARY.exists() and stamp.read_text().strip() == fp:
-                return BINARY
+            if (all(t.exists() for t in targets)
+                    and stamp.read_text().strip() == fp):
+                return targets[0]
         except OSError:
             pass
-        _compile(cxx, fp, stamp)
-    return BINARY
+        work = Path(tempfile.mkdtemp(prefix=targets[0].name + "-", dir=BUILD_DIR))
+        try:
+            make(work)
+            for t in targets:
+                os.replace(work / t.name, t)
+            (work / "stamp").write_text(fp + "\n")
+            os.replace(work / "stamp", stamp)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return targets[0]
 
 
-def _compile(cxx: str, fp: str, stamp: Path) -> None:
-    """Compile and link in a work directory, then install the binary and
-    its stamp."""
-    work = Path(tempfile.mkdtemp(prefix="oncillamemd-", dir=BUILD_DIR))
+def _run(cmds: list, what: str) -> None:
+    """Run the commands at once; raise with the output of each that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}: exit {proc.returncode}\n"
+                          f"{log[-4000:]}")
+    if failed:
+        raise OcmError(f"{what} failed:\n" + "\n".join(failed))
+
+
+def _compile_daemon(cxx: str, flags: tuple, work: Path, name: str) -> None:
+    """The daemon's three units compiled at once, then linked."""
+    objs = [work / (unit + ".o") for unit in _UNITS]
+    _run([[cxx, *flags, "-c", str(NATIVE_DIR / unit), "-o", str(obj)]
+          for unit, obj in zip(_UNITS, objs)], "daemon build")
+    _run([[cxx, *flags, *map(str, objs), "-o", str(work / name)]],
+         "daemon link")
+
+
+def _compile_lib(cxx: str, cc: str, work: Path) -> None:
+    """The library's units and the demo app compiled at once; then
+    ``libocm_tpu.so``, and ``ocm_c_demo`` linked to it, finding it beside
+    itself at run time."""
+    objs = [work / (unit + ".o") for unit in _LIB_UNITS]
+    demo = work / (_DEMO + ".o")
+    _run([*([cxx, *_LIB_FLAGS, "-c", str(NATIVE_DIR / unit), "-o", str(obj)]
+            for unit, obj in zip(_LIB_UNITS, objs)),
+          [cc, *_CFLAGS, "-c", str(NATIVE_DIR / _DEMO), "-o", str(demo)]],
+         "library build")
+    _run([[cxx, *_LIB_FLAGS, "-shared", "-Wl,-soname,libocm_tpu.so",
+           *map(str, objs), "-o", str(work / "libocm_tpu.so")]], "library link")
+    _run([[cc, *_CFLAGS, str(demo), "-L", str(work), "-l:libocm_tpu.so",
+           "-Wl,-rpath,$ORIGIN", "-o", str(work / "ocm_c_demo")]], "demo link")
+
+
+def build_daemon(tsan: bool = False) -> Path:
+    """Compile ``runtime/native/`` into ``build/oncilla_tpu_torch/
+    oncillamemd`` (with ``tsan``, ``oncillamemd_tsan``: ThreadSanitizer at
+    ``-g -O1``) unless the binary there was built from these exact sources,
+    compiler and flags (its own ``.srchash`` stamp, so neither variant
+    makes the other stale). Raises with the compiler's output when the
+    build fails."""
+    cxx = _compiler()
+    flags = (*_CXXFLAGS, *(_TSAN if tsan else _OPT))
+    name = "oncillamemd_tsan" if tsan else "oncillamemd"
+    return _cached_build((BUILD_DIR / name,),
+                         _fingerprint(_UNITS, (cxx, *flags)),
+                         lambda work: _compile_daemon(cxx, flags, work, name))
+
+
+def build_lib() -> Path:
+    """Compile the C client library into ``build/oncilla_tpu_torch/
+    libocm_tpu.so`` and its demo app into ``ocm_c_demo`` beside it, unless
+    both were built from these exact sources, compilers and flags (the
+    library's own ``.srchash`` stamp). Raises with the compiler's output
+    when a compiler is missing or the build fails."""
+    cxx, cc = _compiler("library"), _c_compiler()
+    fp = _fingerprint((*_LIB_UNITS, _DEMO), (cxx, *_LIB_FLAGS, cc, *_CFLAGS))
+    return _cached_build((BUILD_DIR / "libocm_tpu.so", BUILD_DIR / "ocm_c_demo"),
+                         fp, lambda work: _compile_lib(cxx, cc, work))
+
+
+class OcmcHandle(ctypes.Structure):
+    """``ocm_client.h``'s ``ocmc_handle``, the library's handle."""
+    _fields_ = [("alloc_id", ctypes.c_uint64), ("rank", ctypes.c_int64),
+                ("device_index", ctypes.c_uint32), ("kind", ctypes.c_uint8),
+                ("nbytes", ctypes.c_uint64), ("offset", ctypes.c_uint64),
+                ("owner_host", ctypes.c_char * 256),
+                ("owner_port", ctypes.c_uint32)]
+
+
+def load_lib(path) -> ctypes.CDLL:
+    """The C client library at ``path`` (:func:`build_lib`'s, or any build
+    of ``ocm_client.h``) through ctypes, with the argument and result
+    types of its calls; handles are :class:`OcmcHandle`."""
+    lib = ctypes.CDLL(str(path))
+    vp, u64, h = ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(OcmcHandle)
+    i = ctypes.c_int
+    for name, res, args in (
+            ("ocmc_init", vp, [ctypes.c_char_p, ctypes.c_int64, ctypes.c_double]),
+            ("ocmc_tini", None, [vp]),
+            ("ocmc_alloc", i, [vp, u64, ctypes.c_uint8, h]),
+            ("ocmc_free", i, [vp, h]),
+            ("ocmc_put", i, [vp, h, vp, u64, u64]),
+            ("ocmc_get", i, [vp, h, vp, u64, u64]),
+            ("ocmc_is_remote", i, [h]),
+            ("ocmc_remote_sz", u64, [h]),
+            ("ocmc_nnodes", ctypes.c_int64, [vp]),
+            ("ocmc_last_error", ctypes.c_char_p, [vp]),
+            ("ocmc_localbuf", vp, [vp, h]),
+            ("ocmc_localbuf_sized", vp, [vp, h, u64]),
+            ("ocmc_copy_onesided", i, [vp, h, i]),
+            ("ocmc_copy", i, [vp, h, h, u64]),
+            ("ocmc_copy_out", i, [vp, vp, h, u64, u64]),
+            ("ocmc_copy_in", i, [vp, h, vp, u64, u64])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def _flags(*, policy: str, ndevices: int, host_arena_bytes=None,
+           device_arena_bytes=None, lease_s=None, heartbeat_s=None,
+           snapshot=None) -> list:
+    """The options both daemons take after their nodefile and rank."""
+    args = ["--policy", policy, "--ndevices", str(ndevices)]
+    for flag, value in (("--host-arena-bytes", host_arena_bytes),
+                        ("--device-arena-bytes", device_arena_bytes),
+                        ("--lease-s", lease_s), ("--heartbeat-s", heartbeat_s),
+                        ("--snapshot", snapshot)):
+        if value is not None:
+            args += [flag, str(value)]
+    return args
+
+
+def _launch(cmd: list, env: dict | None, log_path: str | None) -> subprocess.Popen:
+    """``cmd`` as a process with ``env`` over this one's environment, its
+    output spooled to ``log_path`` when given: a pipe nobody drains fills
+    at ~64 KiB and a chatty daemon (a ThreadSanitizer report) would block
+    writing to it."""
+    out = open(log_path, "wb") if log_path is not None else subprocess.PIPE
     try:
-        procs = []
-        for unit in _UNITS:
-            obj = work / (unit + ".o")
-            procs.append((unit, obj, subprocess.Popen(
-                [cxx, *_CXXFLAGS, "-c", str(NATIVE_DIR / unit), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        for unit, _, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{unit}: exit {proc.returncode}\n{log[-4000:]}")
-        if failed:
-            raise OcmError("daemon build failed:\n" + "\n".join(failed))
-        out = work / "oncillamemd"
-        link = subprocess.run(
-            [cxx, *_CXXFLAGS, *(str(o) for _, o, _ in procs), "-o", str(out)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise OcmError(f"daemon link failed:\n{link.stdout[-4000:]}")
-        os.replace(out, BINARY)
-        (work / "stamp").write_text(fp + "\n")
-        os.replace(work / "stamp", stamp)
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                stdin=subprocess.DEVNULL,
+                                env={**os.environ, **(env or {})})
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if log_path is not None:
+            out.close()  # the child keeps its own descriptor
+
+
+def spawn(nodefile: str, rank: int, *, policy: str = _POLICY, ndevices: int = 1,
+          host_arena_bytes: int | None = None,
+          device_arena_bytes: int | None = None, lease_s: float | None = None,
+          heartbeat_s: float | None = None, tsan: bool = False,
+          snapshot: str | None = None, env: dict | None = None,
+          log_path: str | None = None, binary: Path | None = None
+          ) -> subprocess.Popen:
+    """One process of the port's native daemon (``tsan``: its
+    ThreadSanitizer build) at ``rank`` of ``nodefile``; ``binary`` (a
+    build already made) skips the build's stamp check. Its output goes to
+    ``log_path``, else to a pipe."""
+    if binary is None:
+        binary = build_daemon(tsan=tsan)
+    return _launch([str(binary), "--nodefile", nodefile, "--rank", str(rank),
+                    *_flags(policy=policy, ndevices=ndevices,
+                            host_arena_bytes=host_arena_bytes,
+                            device_arena_bytes=device_arena_bytes, lease_s=lease_s,
+                            heartbeat_s=heartbeat_s, snapshot=snapshot)],
+                   env, log_path)
 
 
 def free_ports(n: int) -> list[int]:
@@ -178,7 +337,7 @@ class LocalCluster:
         if daemon not in ("native", "python"):
             raise ValueError(f"daemon must be 'native' or 'python' (got {daemon!r})")
         if daemon == "native":
-            prog = [str(build_daemon())]
+            binary = build_daemon()
             start_timeout = _START_TIMEOUT_S
         else:
             prog = [sys.executable, "-m", "oncilla_tpu_torch.runtime.daemon"]
@@ -195,29 +354,26 @@ class LocalCluster:
         self.procs: list[subprocess.Popen] = []
         self.clients: list = []
         host_bytes = _per_rank(host_arena_bytes, n)
-        proc_env = dict(os.environ)
-        proc_env.update(env or {})
+        proc_env = dict(env or {})
         if daemon == "python":
-            proc_env["PYTHONPATH"] = os.pathsep.join(
-                p for p in (str(_REPO), proc_env.get("PYTHONPATH")) if p)
+            proc_env["PYTHONPATH"] = os.pathsep.join(p for p in (
+                str(_REPO), proc_env.get("PYTHONPATH", os.environ.get("PYTHONPATH")))
+                if p)
         try:
             # Rank 0 first: the others join it with ADD_NODE.
             for r in range(n):
+                log = str(self.workdir / f"daemon{r}.log")
+                kw = dict(policy=_POLICY, ndevices=ndevices,
+                          host_arena_bytes=host_bytes[r],
+                          device_arena_bytes=device_arena_bytes,
+                          lease_s=lease_s, heartbeat_s=heartbeat_s)
                 if daemon == "native":
-                    args = ["--nodefile", self.nodefile, "--rank", str(r)]
+                    proc = spawn(self.nodefile, r, binary=binary, env=proc_env,
+                                 log_path=log, **kw)
                 else:
-                    args = [self.nodefile, "--rank", str(r)]
-                cmd = [*prog, *args,
-                       "--policy", _POLICY, "--ndevices", str(ndevices),
-                       "--host-arena-bytes", str(host_bytes[r]),
-                       "--device-arena-bytes", str(device_arena_bytes),
-                       "--lease-s", str(lease_s)]
-                if heartbeat_s is not None:
-                    cmd += ["--heartbeat-s", str(heartbeat_s)]
-                with open(self.workdir / f"daemon{r}.log", "wb") as log:
-                    self.procs.append(subprocess.Popen(
-                        cmd, stdout=log, stderr=subprocess.STDOUT,
-                        stdin=subprocess.DEVNULL, env=proc_env))
+                    proc = _launch([*prog, self.nodefile, "--rank", str(r),
+                                    *_flags(**kw)], proc_env, log)
+                self.procs.append(proc)
             self._wait_joined(start_timeout)
         except BaseException:
             self.stop()

@@ -55,21 +55,52 @@ def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _comment_lines(lines: list) -> set:
+    """Indices of the lines that hold only comment: a ``//`` line, or a
+    line of a ``/* ... */`` block that begins its line, where nothing but
+    blanks follows the ``*/`` that closes the block. A line with code
+    after its ``*/`` (``/*alloc=*/true);``, ``*/ x = 1;``) is code."""
+    out, block = set(), False
+    for i, line in enumerate(lines):
+        s = line.strip()
+        if not block and s.startswith(b"//"):
+            out.add(i)
+            continue
+        if not (block or s.startswith(b"/*")):
+            continue
+        body = s if block else s[2:]
+        end = body.find(b"*/")
+        block = end < 0
+        if block or not body[end + 2:].strip():
+            out.add(i)
+    return out
+
+
 def test_sources_are_the_jax_packages_line_for_line():
-    """The copy is the JAX package's daemon: the same files and lines, the
-    code byte for byte; a line may differ only where both are comments
-    (the copy's do not name the reference's own paths)."""
+    """The copy is the JAX package's daemon and C client library: the same
+    files and lines, the code byte for byte; a line may differ only where
+    both are comments (the copy's do not name the reference's own
+    paths)."""
     jax_dir = ROOT / "oncilla_tpu" / "runtime" / "native"
     names = sorted(p.name for p in cluster.NATIVE_DIR.iterdir() if p.is_file())
-    assert names == sorted((*cluster._UNITS, *cluster._HEADERS))
+    assert names == sorted({*cluster._UNITS, *cluster._HEADERS,
+                            *cluster._LIB_UNITS, cluster._DEMO, "ocm_client.h"})
+    assert {"libocm.cc", "ocm_client.h", "ocm_c_demo.c"} <= set(names)
     for name in names:
         ours = (cluster.NATIVE_DIR / name).read_bytes().splitlines()
         theirs = (jax_dir / name).read_bytes().splitlines()
         assert len(ours) == len(theirs), name
-        for i, (a, b) in enumerate(zip(ours, theirs), 1):
+        comments = _comment_lines(ours) & _comment_lines(theirs)
+        for i, (a, b) in enumerate(zip(ours, theirs)):
             if a != b:
-                assert a.lstrip().startswith(b"//") and b.lstrip().startswith(b"//"), \
-                    f"{name}:{i}"
+                assert i in comments, f"{name}:{i + 1}"
+
+
+def test_comment_lines_are_told_from_code():
+    lines = [b"// a", b"int x; /* b */", b"  /* c", b"   * d", b"   */", b"x = *p;",
+             b"/* e */", b"y = 1;", b"/** f **/", b"z = 2;",
+             b"    /*alloc=*/true);", b"  /* g", b"  */ x = 1;", b"w = 3;"]
+    assert _comment_lines(lines) == {0, 2, 3, 4, 6, 8, 11}
 
 
 def test_build_is_cached_and_needs_a_compiler(monkeypatch):

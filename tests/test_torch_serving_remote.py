@@ -178,7 +178,8 @@ def test_engine_over_a_mux_cold_tier_runs_async_and_matches_jax(
 def test_chip_smoke_wire_phase_rehearsal_on_the_cpu(tiny_model):
     """Phase 8 at tiny sizes on the CPU, runs F and G included against runs
     E and C of the same settings (launch counts aside: no kernel runs
-    here); a run G whose tokens differ from C's must fail check (e)."""
+    here), and check (f), the C library's device leg, on CPU rows; a run G
+    whose tokens differ from C's must fail check (e)."""
     import chip_smoke
 
     _, _, cfg, params = tiny_model
@@ -192,7 +193,7 @@ def test_chip_smoke_wire_phase_rehearsal_on_the_cpu(tiny_model):
     small = dict(row_bytes=1 << 20, host_bytes=(4 << 20, 16 << 20),
                  sizes=(4096, (1 << 20) + 4096, 3 << 20), matrix_bytes=64 << 10,
                  timed=(64 << 10,), reps=2, alloc_iters=10, placed=(64 << 10, 3),
-                 check_launches=False)
+                 libocm=(64 << 10, 256 << 10), check_launches=False)
     rep = chip_smoke.phase_wire(cpu, engine=engine, **small)
     e = rep["engine"]
     assert e["g_vs_c_tokens_equal"] == e["tokens"] > 0
@@ -203,6 +204,10 @@ def test_chip_smoke_wire_phase_rehearsal_on_the_cpu(tiny_model):
                                        + e["cold_io"]["G"]["get"])
     assert e["cold_pages_mismatched"] == 0
     assert rep["placed"]["relayed"]["PLANE_PUT"] >= 1
+    lib = rep["libocm"]  # (f): the C library's device leg on CPU rows
+    assert lib["demo"]["passes"] == 3 and lib["nbytes"] == 256 << 10
+    assert lib["relayed"]["PLANE_PUT"] >= 1 and lib["relayed"]["PLANE_GET"] >= 1
+    assert [r["nbytes"] for r in lib["rates"]] == [64 << 10, 256 << 10]
     assert set(rep["errors"]) == {"remote_host_past_end", "remote_device_past_end",
                                   "alloc_past_rank1_arena", "double_free",
                                   "use_after_tini"}
