@@ -90,7 +90,9 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    ``ocm_init(OcmConfig(nodefile=..., rank=0), ici_plane=plane)``. (a)
    REMOTE_HOST at 4 KiB .. 1 GiB lands on rank 1, put from a card tensor and
    got back byte-equal (whole, at offsets, into card and pinned buffers),
-   live in rank 1's STATUS until freed; (b) the copy matrix of the four
+   live in rank 1's STATUS until freed; (a2) two threads of the app put
+   and get 16 MiB card tensors at once, byte-equal, each transfer on a
+   staging buffer of its own; (b) the copy matrix of the four
    kinds at one KV page, byte for byte, with K1/K2 launches on the
    LOCAL_DEVICE legs and K4 (no get) on REMOTE_DEVICE -> REMOTE_DEVICE; (c)
    daemon-placed REMOTE_DEVICE handles on rank 1 read as zeros, and a
@@ -230,7 +232,16 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    of other work, each returning 0 on its OK line: ``resilience --smoke``,
    ``--leader-smoke`` and ``--deadline-smoke``, ``obs --smoke``, ``obs slo
    --selftest``, ``elastic --smoke``, ``qos --smoke``, ``fabric --smoke``.
-5m. moe — the MoE family on the serving path, right after 8f once the
+D. demo — the walkthrough (``python -m oncilla_tpu_torch.examples.demo``,
+   the JAX package's ``examples/demo.py``) in this process on the card,
+   right after 8f: its ``main(["--device", "cuda"])`` prints its three
+   sections and "demo complete"; a 1 MiB LOCAL_DEVICE put and get and a
+   device->host copy, a REMOTE_HOST put/get and a checkpoint on two
+   in-process daemons, 3 train steps of ``LlamaConfig.tiny()`` and 24
+   paged decode steps. Its K1/K2 launches must be those predicted
+   (``DEMO_LAUNCHES``) and no other kernel launched.
+
+5m. moe — the MoE family on the serving path, right after D once the
    Llama weights are freed: ``MoeConfig.mixtral_8x7b()`` (dim 4096, 32
    heads, 8 KV heads, ffn 14336, 8 experts, top-2, capacity factor 1.25,
    vocab 32000, bf16) cut to 8 of its 32 layers (23.75 GB of seeded
@@ -318,6 +329,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -393,6 +405,10 @@ N_REQUESTS = 2
 # The serving engine's pages: 16 tokens, 2 MiB at Llama-3-8B in bf16,
 # above the 1 MiB kernel threshold, so every HOT put/get is K1/K2.
 ENGINE_PAGE_TOKENS = 16
+# Phase D's launches: section 1's 1 MiB LOCAL_DEVICE put (K1), its get and
+# the device->host copy's get (K2 twice). The REMOTE_HOST legs, the
+# checkpoint and the LOCAL_HOST KV pages move no byte through a kernel.
+DEMO_LAUNCHES = {"write_rows": 1, "read_rows": 2}
 
 
 def log(msg: str) -> None:
@@ -1691,6 +1707,87 @@ def wire_context(cl, mesh, row_bytes: int, app_bytes: int):
     return plane, ocm.ocm_init(cfg, device=mesh[0], ici_plane=plane)
 
 
+def wire_concurrent(ctx, device, gen, n: int, rounds: int) -> dict:
+    """Check (a2): two threads of the app at once (a barrier each round),
+    each putting a card tensor of ``n`` bytes into a REMOTE_HOST handle of
+    its own and reading it back into a card tensor, ``rounds`` times.
+    Every get is byte-equal to its put, and the client keeps at most
+    ``STAGE_KEEP`` free staging buffers after. Reports the most staging
+    buffers out at once (2 when the two threads' wire legs overlapped) and
+    a round's wall time beside one thread's put and get."""
+    import threading
+
+    from oncilla_tpu_torch import OcmKind
+    from oncilla_tpu_torch.runtime.client import STAGE_KEEP
+
+    client = ctx._remote
+    inner, count_lock = client._staged, threading.Lock()
+    held = {"now": 0, "peak": 0}
+
+    @contextlib.contextmanager
+    def counted(nbytes):
+        with inner(nbytes) as buf:
+            with count_lock:
+                held["now"] += 1
+                held["peak"] = max(held["peak"], held["now"])
+            try:
+                yield buf
+            finally:
+                with count_lock:
+                    held["now"] -= 1
+
+    hs = [ctx.alloc(n, OcmKind.REMOTE_HOST) for _ in range(2)]
+    data = [torch.empty(n, dtype=torch.uint8, device=device).random_(
+        0, 256, generator=gen) for _ in range(2)]
+    outs = [torch.empty(n, dtype=torch.uint8, device=device) for _ in range(2)]
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def one(i):
+        try:
+            for r in range(rounds):
+                barrier.wait()
+                ctx.put(hs[i], data[i])
+                ctx.get(hs[i], out=outs[i])
+                if not torch.equal(outs[i], data[i]):
+                    raise AssertionError(f"thread {i} round {r}: bytes differ")
+                outs[i].zero_()
+        except BaseException as e:  # re-raised on the phase's thread
+            errors.append(e)
+            barrier.abort()
+
+    def serial_s():
+        t0 = time.perf_counter()
+        ctx.put(hs[0], data[0])
+        ctx.get(hs[0], out=outs[0])
+        return time.perf_counter() - t0
+
+    serial_s()  # warm: the buffers of this size exist
+    one_s = statistics.median(serial_s() for _ in range(rounds))
+    client._staged = counted
+    try:
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        pair_s = (time.perf_counter() - t0) / rounds
+    finally:
+        del client._staged
+    if errors:
+        raise errors[0]
+    for h in hs:
+        ctx.free(h)
+    kept = len(client._stage_free)
+    if kept > STAGE_KEEP:
+        raise AssertionError(f"staging pool keeps {kept} buffers, past "
+                             f"STAGE_KEEP {STAGE_KEEP}")
+    return {"nbytes": n, "rounds": rounds, "peak_buffers": held["peak"],
+            "kept_buffers": kept, "round_s": pair_s,
+            "one_thread_put_get_s": one_s}
+
+
 def wire_placed(ctx, plane, nodefile: str, n: int, count: int) -> dict:
     """Check (c): ``count`` REMOTE_DEVICE handles of ``n`` bytes placed by
     the daemons on rank 1 read as zeros over rows filled with noise (the
@@ -1866,12 +1963,14 @@ def wire_libocm(cl, device, row_bytes: int, sizes=WIRE_LIBOCM, reps: int = 3,
 def phase_wire(device, *, row_bytes: int = WIRE_ROW, host_bytes=WIRE_HOST,
                sizes=WIRE_SIZES, matrix_bytes: int = PAGE, timed=(PAGE, GiB),
                reps: int = 5, alloc_iters: int = 200, placed=(PAGE, 4),
-               libocm=WIRE_LIBOCM, engine=None, check_launches: bool = True) -> dict:
+               libocm=WIRE_LIBOCM, concurrent=(16 * MiB, 4), engine=None,
+               check_launches: bool = True) -> dict:
     """Phase 8, the wire: two daemons of the port's copy
     (``runtime/cluster.local_cluster(2)``), a 4-row ``SpmdIciPlane`` of
     ``row_bytes`` rows on the card, and the app ``ocm_init(OcmConfig(
     nodefile=..., rank=0), ici_plane=plane)``. Checks (a) REMOTE_HOST at
-    ``sizes``, (b) the copy matrix at ``matrix_bytes``, (c) daemon-placed
+    ``sizes``, (a2) two threads' card-tensor transfers at once of
+    ``concurrent`` = (bytes, rounds) (:func:`wire_concurrent`), (b) the copy matrix at ``matrix_bytes``, (c) daemon-placed
     REMOTE_DEVICE handles with a plane-less second process, (d) the typed
     errors, and, given ``engine`` (``dict(cfg=, params=, page_tokens=,
     runs=<phase 5b's runs, C and E among them>)``, optionally ``kw=``
@@ -1937,6 +2036,9 @@ def phase_wire(device, *, row_bytes: int = WIRE_ROW, host_bytes=WIRE_HOST,
         log(f"[wire] (a) REMOTE_HOST at {list(sizes)} B: on rank 1, byte-equal "
             "(whole, at offsets, into card and pinned buffers), STATUS live "
             "then gone")
+        report["concurrent"] = wire_concurrent(ctx, device, gen, *concurrent)
+        log(f"[wire] (a2) two threads, card-tensor put and get at once, "
+            f"byte-equal: {json.dumps(report['concurrent'])}")
 
         # (b) the copy matrix, every pair of the four kinds.
         n = matrix_bytes
@@ -4037,6 +4139,36 @@ def phase_observed(device, cfg, params, *, ref: dict, seed: int = HARNESS_SEED,
     return report
 
 
+# -- phase D ----------------------------------------------------------------
+
+
+def phase_demo(device, expect=DEMO_LAUNCHES) -> dict:
+    """Phase D (module docstring): the walkthrough's ``main`` on ``device``
+    with every kernel's count zeroed before it; its printed lines, its
+    seconds and the launches, which must equal ``expect`` (every kernel
+    not named there at 0)."""
+    from oncilla_tpu_torch.examples import demo
+    from oncilla_tpu_torch.ops import dma
+
+    out = io.StringIO()
+    dma.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main(["--device", device.type])
+    seconds = time.perf_counter() - t0
+    launches = dma.launches()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[demo] {line}")
+    if rc != 0 or lines[-1:] != ["demo complete"] or len(lines) != 11:
+        raise AssertionError(f"demo: rc {rc}, lines {lines}")
+    want = {k: expect.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"demo: launches {launches}, predicted {want}")
+    log(f"[demo] launches {launches}; phase {seconds:.3f} s")
+    return {"seconds": seconds, "launches": launches, "lines": lines}
+
+
 # -- phase 5m ---------------------------------------------------------------
 
 # Mixtral-8x7B at its published widths, its depth cut to 8 of 32 layers:
@@ -4867,6 +4999,7 @@ def main(argv=None) -> int:
         host_us_ref=next(r["host_us"] for r in kern["write_rows"] if "host_us" in r))
     del params
     torch.cuda.empty_cache()
+    demo_r = phase_demo(device)
 
     # Phase 5m: the MoE family at Mixtral width, its weights made on the
     # card after the dense ones are gone and freed before phase 6's rows.
@@ -4914,7 +5047,8 @@ def main(argv=None) -> int:
                  # bench cells in phase 7's serving stage).
                  "harness": {k: v + bench["launches_serving"].get(k, 0)
                              for k, v in harness["launches"].items()},
-                 "observed": observed["launches"], "moe": moe_r["launches"],
+                 "observed": observed["launches"], "demo": demo_r["launches"],
+                 "moe": moe_r["launches"],
                  "moe_train": trn["sharded"]["moe_train"]["launches"],
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
@@ -4985,6 +5119,7 @@ def main(argv=None) -> int:
             "cells", "launches", "slo", "export", "critpath", "profiler", "cli",
             "tok_s", "tok_s_unobserved", "host_us_k1", "host_us_k1_phase3",
             "clis", "drained_ranks", "seconds", "seconds_by")},
+        "demo": demo_r,
         "moe": {k: moe_r[k] for k in (
             "layers", "page_bytes", "pages", "token_bytes", "bound_ms", "modes",
             "launches", "init_s", "seconds")},

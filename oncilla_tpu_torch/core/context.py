@@ -27,6 +27,7 @@ from typing import Protocol
 
 import torch
 
+from oncilla_tpu_torch.analysis import alloctrace
 from oncilla_tpu_torch.core.arena import Extent, check_bounds
 from oncilla_tpu_torch.core.errors import OcmConnectError, OcmInvalidHandle
 from oncilla_tpu_torch.core.handle import OcmAlloc
@@ -89,6 +90,9 @@ class Ocm:
         self._owns_remote = False
         self._lock = threading.Lock()
         self.tracer = GLOBAL_TRACER
+        # Scope key for the OCM_ALLOCTRACE=1 allocation ledger (id-based:
+        # contexts sharing a backend must not share a ledger scope).
+        self._trace_scope = f"ctx:{id(self):#x}"
 
     # -- lifecycle -------------------------------------------------------
 
@@ -101,6 +105,22 @@ class Ocm:
     def tini(self) -> None:
         """Free every live handle and, when ``ocm_init`` attached the
         backend, detach from the daemon (``ocm_tini``, lib.c:160)."""
+        if alloctrace.enabled():
+            # Still-live handles here were leaked by the app (tini is the
+            # reclaim-of-last-resort): report each with its allocation
+            # site before the frees below erase the evidence.
+            report = alloctrace.note_tini(self._trace_scope)
+            if report["count"]:
+                printd(
+                    "tini: %d leaked alloc(s) totalling %d B reclaimed",
+                    report["count"], report["bytes"],
+                )
+                for entry in report["live"]:
+                    printd(
+                        "tini leak: alloc %d (%d B, %s) from %s [%s]",
+                        entry["alloc_id"], entry["nbytes"], entry["kind"],
+                        entry["site"], entry["thread"],
+                    )
         with self._lock:
             handles = list(self._allocs.values())
         for h in handles:
@@ -166,6 +186,9 @@ class Ocm:
                 h.local_nbytes = local_nbytes
             with self._lock:
                 self._allocs[h.alloc_id] = h
+            alloctrace.note_alloc(
+                self._trace_scope, h.alloc_id, nbytes, h.kind.name
+            )
             printd("alloc id=%d kind=%s nbytes=%d", h.alloc_id, kind, nbytes)
             return h
 
@@ -185,6 +208,7 @@ class Ocm:
             self._local_arena(handle.kind, handle.device_index).free(
                 handle.extent)
         handle.freed = True
+        alloctrace.note_free(self._trace_scope, handle.alloc_id)
 
     # -- one-sided ops ---------------------------------------------------
 

@@ -38,6 +38,7 @@ this client's STATUS_PROM path; its verdicts ride ``status()["slo"]``.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -264,6 +265,11 @@ def _settle(dev: torch.device) -> None:
 # this alias keeps the long-standing import path working.
 _PeerTuner = tcp_fabric.PeerTuner
 
+# Free staging buffers a client keeps between card transfers (the largest
+# ones): as many transfers as this overlap with no new pinned allocation,
+# and a burst of more gives its extra buffers back to the allocator.
+STAGE_KEEP = 2
+
 
 class ControlPlaneClient:
     """Connects an app process to its local daemon (and, for data, directly
@@ -361,10 +367,12 @@ class ControlPlaneClient:
         self.transfers = {"put": 0, "get": 0, "put_bytes": 0, "get_bytes": 0}
         self._stats_lock = threading.Lock()
         # Host staging for card tensors (pinned when CUDA is there): a card
-        # put is copied down into it and sent from it, a get into a card
-        # tensor lands in it and is copied up. Grown to the largest
-        # transfer, reused; held under its lock for the whole transfer.
-        self._stage: torch.Tensor | None = None
+        # put is copied down into a buffer and sent from it, a get into a
+        # card tensor lands in one and is copied up. Each transfer takes a
+        # buffer of its own from this pool (under the lock) and gives it
+        # back after; the wire legs run with no lock held, so card puts and
+        # gets of one client overlap. At most STAGE_KEEP buffers stay free.
+        self._stage_free: list[torch.Tensor] = []
         self._stage_lock = threading.Lock()
         self._plane_server: _PlaneServer | None = None
         self._hb_stop = threading.Event()
@@ -950,18 +958,33 @@ class ControlPlaneClient:
         # A card tensor goes out from pinned staging, copied down (and
         # synchronised) on this thread: no stripe thread and no mux loop
         # ever touches the card.
-        with self._stage_lock:
-            stage = self._staging(raw.numel())
+        with self._staged(raw.numel()) as stage:
             stage.copy_(raw)
             self._dcn_put(handle, stage.numpy(), offset, budget)
 
-    def _staging(self, n: int) -> torch.Tensor:
-        """``n`` bytes of the staging buffer; hold ``_stage_lock``."""
-        if self._stage is None or self._stage.numel() < n:
-            self._stage = None  # release the smaller one first
-            self._stage = torch.empty(n, dtype=torch.uint8,
-                                      pin_memory=torch.cuda.is_available())
-        return self._stage[:n]
+    @contextlib.contextmanager
+    def _staged(self, n: int):
+        """``n`` bytes of a staging buffer this transfer alone uses: the
+        smallest free one that fits, else a new one (a smaller free buffer
+        is released first). Given back to the pool on exit, which then
+        releases its smallest free buffer past ``STAGE_KEEP``."""
+        with self._stage_lock:
+            free = self._stage_free  # smallest first
+            i = next((i for i, b in enumerate(free) if b.numel() >= n), None)
+            buf = None if i is None else free.pop(i)
+            if buf is None and free:
+                free.pop(0)
+        if buf is None:
+            buf = torch.empty(n, dtype=torch.uint8,
+                              pin_memory=torch.cuda.is_available())
+        try:
+            yield buf[:n]
+        finally:
+            with self._stage_lock:
+                free = self._stage_free
+                bisect.insort(free, buf, key=torch.Tensor.numel)
+                if len(free) > STAGE_KEEP:
+                    free.pop(0)
 
     def get(self, handle: OcmAlloc, nbytes: int, offset: int = 0,
             deadline_ms: int | None = None):
@@ -1806,8 +1829,7 @@ class ControlPlaneClient:
             if out.dtype != torch.uint8 or not out.is_contiguous():
                 raise ValueError("out must be a contiguous uint8 tensor")
             if out.device.type != "cpu":
-                with self._stage_lock:
-                    stage = self._staging(out.numel())
+                with self._staged(out.numel()) as stage:
                     self._dcn_get_into(handle, stage.numpy(), out.numel(),
                                        offset, budget)
                     out.view(-1).copy_(stage)

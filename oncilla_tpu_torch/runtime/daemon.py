@@ -3396,7 +3396,9 @@ class Daemon:
         fan0 = time.monotonic() if e.chain and obs_journal.enabled() else 0.0
         try:
             restream = self._restreaming.get(e.alloc_id)
-            with restream or contextlib.nullcontext():  # ocm-lint: allow[lock-across-rpc]
+            # Held across the legs' FLAG_FANOUT dials; why no cycle closes:
+            # the restream loop in _on_re_replicate.
+            with restream or contextlib.nullcontext():
                 self._fan_out_legs(e, offset, nbytes, data)
         finally:
             if fan0:
@@ -3935,8 +3937,13 @@ class Daemon:
             pos = 0
             while pos < e.nbytes:
                 n = min(chunk, e.nbytes - pos)
-                with restream:  # ocm-lint: allow[lock-across-rpc]
-                    self.peers.request(
+                # The frame carries FLAG_FANOUT: the target's
+                # _on_data_put takes only its registry and arena locks,
+                # neither held across a dial, and never a restream lock (a
+                # fan-out frame is not fanned out again), so no wait at the
+                # target leads back to this lock and no cycle closes.
+                with restream:
+                    self.peers.request(  # ocm-lint: allow[lock-across-rpc]
                         te.connect_host, te.port,
                         Message(
                             MsgType.DATA_PUT,

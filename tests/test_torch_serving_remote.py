@@ -193,8 +193,11 @@ def test_chip_smoke_wire_phase_rehearsal_on_the_cpu(tiny_model):
     small = dict(row_bytes=1 << 20, host_bytes=(4 << 20, 16 << 20),
                  sizes=(4096, (1 << 20) + 4096, 3 << 20), matrix_bytes=64 << 10,
                  timed=(64 << 10,), reps=2, alloc_iters=10, placed=(64 << 10, 3),
-                 libocm=(64 << 10, 256 << 10), check_launches=False)
+                 libocm=(64 << 10, 256 << 10), concurrent=(256 << 10, 2),
+                 check_launches=False)
     rep = chip_smoke.phase_wire(cpu, engine=engine, **small)
+    conc = rep["concurrent"]  # (a2): CPU tensors take no staging buffer
+    assert (conc["nbytes"], conc["rounds"], conc["peak_buffers"]) == (256 << 10, 2, 0)
     e = rep["engine"]
     assert e["g_vs_c_tokens_equal"] == e["tokens"] > 0
     assert e["f_vs_e"]["held_equal"] and e["cold_sim"] == [False, False]
