@@ -17,6 +17,13 @@ scalar on the device, so the step can be captured in a CUDA graph
 (:mod:`.graphs`): the serving engine's batched step and the page-fused
 modes of the kv_decode harness replay it.
 
+Host-clock spans (:data:`~oncilla_tpu_torch.utils.debug.GLOBAL_TRACER`,
+ranges on a running profiler's timeline): ``decode_token_step`` around each
+token step of a page (its eager run or its graph's replay),
+``attention`` around each layer's attention in :func:`paged_token_step`,
+``kv_store_page`` and ``kv_fetch_pages`` around the page moves. A span in a
+captured step counts its eager runs and its capture, never a replay.
+
 Every step takes the family hooks of the JAX package, ``layer_params_fn``
 (the layer slicer) and ``mlp_of`` (``mlp_of(lp) -> mlp``, the FFN that
 replaces the dense SwiGLU): the MoE family passes
@@ -228,11 +235,12 @@ def paged_token_step(
 
     for i in range(cfg.n_layers):
         def attend(q, kn, vn, i=i):
-            tail_k[i] = torch.where(slot, kn.to(tail_k.dtype), tail_k[i])
-            tail_v[i] = torch.where(slot, vn.to(tail_v.dtype), tail_v[i])
-            k_all = torch.cat([k_ctx[i].to(q.dtype), tail_k[i].to(q.dtype)], 2)
-            v_all = torch.cat([v_ctx[i].to(q.dtype), tail_v[i].to(q.dtype)], 2)
-            return llama.grouped_attention(q, k_all, v_all, mask)
+            with GLOBAL_TRACER.span("attention"):
+                tail_k[i] = torch.where(slot, kn.to(tail_k.dtype), tail_k[i])
+                tail_v[i] = torch.where(slot, vn.to(tail_v.dtype), tail_v[i])
+                k_all = torch.cat([k_ctx[i].to(q.dtype), tail_k[i].to(q.dtype)], 2)
+                v_all = torch.cat([v_ctx[i].to(q.dtype), tail_v[i].to(q.dtype)], 2)
+                return llama.grouped_attention(q, k_all, v_all, mask)
 
         lp = lp_fn(params, i)
         x = llama.block(cfg, x, lp, pos[:, None], attend,
@@ -347,10 +355,11 @@ def paged_decode_page(
     ctx_tag = object()  # the context is loaded into a graph once a page
     for j in range(P):
         args = (tokens_page[:, j], metas[j], k_ctx, v_ctx, tail_k, tail_v)
-        if graphs is None:
-            logits, _, _ = step(params, *args, cfg)
-        else:
-            logits, _, _ = graphs.run(step, args, {2: ctx_tag, 3: ctx_tag})
+        with GLOBAL_TRACER.span("decode_token_step"):
+            if graphs is None:
+                logits, _, _ = step(params, *args, cfg)
+            else:
+                logits, _, _ = graphs.run(step, args, {2: ctx_tag, 3: ctx_tag})
         out.append(logits.clone() if graphs is not None else logits)
     return torch.stack(out, 1), tail_k, tail_v
 
@@ -379,9 +388,10 @@ def paged_generate_page(
     metas = _page_metas(meta, B, P, k_ctx.shape[3], token0.device)
     tok, out = token0, []
     for j in range(P):
-        logits, _, _ = paged_token_step(params, tok, metas[j], k_ctx, v_ctx,
-                                        tail_k, tail_v, cfg, layer_params_fn,
-                                        mlp_of)
+        with GLOBAL_TRACER.span("decode_token_step"):
+            logits, _, _ = paged_token_step(params, tok, metas[j], k_ctx, v_ctx,
+                                            tail_k, tail_v, cfg, layer_params_fn,
+                                            mlp_of)
         tok = llama.sample_token(logits, temperature, generator)
         out.append(tok)
     return torch.stack(out, 1), tail_k, tail_v

@@ -60,6 +60,7 @@ from oncilla_tpu_torch.models.llama import (
 )
 from oncilla_tpu_torch.parallel import collectives as col
 from oncilla_tpu_torch.parallel.mesh import DP, TP
+from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
 
 
 @dataclass(frozen=True)
@@ -215,34 +216,36 @@ def moe_ffn(h: torch.Tensor, lp: dict, cfg: MoeConfig, *, mesh=None,
     combine). With ``mesh``, h is this process's shard of the batch (split
     over ``dp`` and ``seq_axis``, replicated over ``ep_axis`` and ``tp``)
     and ``lp`` its shard of the experts (module docstring). Returns
-    ``(y, aux)``."""
-    B, S, D = h.shape
-    T = B * S
-    x = h.reshape(T, D)
-    axes = () if mesh is None else llama.data_axes(mesh, seq_axis)
-    cap = capacity(cfg, T * (1 if mesh is None else mesh.axis_size(*axes)))
+    ``(y, aux)``. The host-clock span ``moe_ffn`` (a range on a running
+    profiler's timeline) holds the whole FFN, the routing included."""
+    with GLOBAL_TRACER.span("moe_ffn"):
+        B, S, D = h.shape
+        T = B * S
+        x = h.reshape(T, D)
+        axes = () if mesh is None else llama.data_axes(mesh, seq_axis)
+        cap = capacity(cfg, T * (1 if mesh is None else mesh.axis_size(*axes)))
 
-    router_logits = x.float() @ lp["w_router"].float()
-    dispatch, combine, aux = route(router_logits, cfg.top_k, cap, mesh=mesh,
-                                   axes=axes, rows=B)
+        router_logits = x.float() @ lp["w_router"].float()
+        dispatch, combine, aux = route(router_logits, cfg.top_k, cap, mesh=mesh,
+                                       axes=axes, rows=B)
 
-    group = None if mesh is None else mesh.group(*(a for a in (ep_axis, TP) if a))
-    combine = combine.to(h.dtype)
-    dispatch = dispatch.to(h.dtype)
-    if group is not None:
-        # This process's experts' slots; x and the combine weights enter
-        # through copy, so their gradients sum the (ep, tp) members' parts.
-        n_local = lp["w_gate_e"].shape[0]
-        lo = (mesh.axis_index(ep_axis) if ep_axis else 0) * n_local
-        x = col.copy(x, group)
-        combine = col.copy(combine, group)[:, lo:lo + n_local]
-        dispatch = dispatch[:, lo:lo + n_local]
-    xe = torch.einsum("tec,td->ecd", dispatch, x)
-    g = torch.einsum("ecd,edf->ecf", xe, lp["w_gate_e"])
-    u = torch.einsum("ecd,edf->ecf", xe, lp["w_up_e"])
-    ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["w_down_e"])
-    y = col.psum(torch.einsum("tec,ecd->td", combine, ye), group)
-    return y.reshape(B, S, D), aux
+        group = None if mesh is None else mesh.group(*(a for a in (ep_axis, TP) if a))
+        combine = combine.to(h.dtype)
+        dispatch = dispatch.to(h.dtype)
+        if group is not None:
+            # This process's experts' slots; x and the combine weights enter
+            # through copy, so their gradients sum the (ep, tp) members' parts.
+            n_local = lp["w_gate_e"].shape[0]
+            lo = (mesh.axis_index(ep_axis) if ep_axis else 0) * n_local
+            x = col.copy(x, group)
+            combine = col.copy(combine, group)[:, lo:lo + n_local]
+            dispatch = dispatch[:, lo:lo + n_local]
+        xe = torch.einsum("tec,td->ecd", dispatch, x)
+        g = torch.einsum("ecd,edf->ecf", xe, lp["w_gate_e"])
+        u = torch.einsum("ecd,edf->ecf", xe, lp["w_up_e"])
+        ye = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["w_down_e"])
+        y = col.psum(torch.einsum("tec,ecd->td", combine, ye), group)
+        return y.reshape(B, S, D), aux
 
 
 # Per-layer (stacked) leaves of the MoE family (the dense family's

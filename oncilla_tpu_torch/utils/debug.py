@@ -9,10 +9,11 @@ name, from which p50/p99 and Gbit/s are read — the counters
 (kv_store_page, kv_fetch_pages) and the daemon's serve side feed. A span
 around a device op measures its enqueue unless the op synchronises.
 Spans join the ambient trace context (:mod:`..obs.trace`) and the
-slow-op watchdog (:mod:`..obs.watchdog`) as in the JAX package. Inside
-:func:`capture_trace` (a ``torch.profiler`` session) each span is also an
-``ocm:<op>`` range on the timeline; outside one a span enters no profiler
-range at all.
+slow-op watchdog (:mod:`..obs.watchdog`) as in the JAX package. While a
+``torch.profiler`` session records, whoever started it (:func:`capture_trace`,
+a benchmark's own profiler, an operator's), each span is also an
+``ocm:<op>`` range on its timeline, around the kernels the span launches;
+outside one a span enters no profiler range at all.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import bisect
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -126,8 +128,9 @@ class _Span:
         self.nbytes = nbytes
 
     def __enter__(self):
-        cls = _ANNOTATION_CLS
-        self.annotation = cls(f"ocm:{self.op}") if cls is not None else None
+        prof = _recording_profiler()
+        self.annotation = (prof.record_function(f"ocm:{self.op}")
+                           if prof is not None else None)
         # Trace context: child of the ambient span (an inbound wire hop
         # or an enclosing local span), else a fresh root — the
         # client-side "mint a (trace_id, span_id) per logical op".
@@ -344,10 +347,15 @@ class Tracer:
             }
 
 
-# ``torch.profiler.record_function`` while a capture_trace session runs,
-# else None: a span outside a capture reads this one global and enters no
-# profiler range.
-_ANNOTATION_CLS = None
+def _recording_profiler():
+    """``torch.autograd.profiler`` (whose ``record_function`` is
+    ``torch.profiler``'s) while a profiler session records, else None:
+    torch's own process-wide flag, read per span. Nothing is imported
+    here: without torch loaded no profiler can record."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    return prof
 
 
 @contextmanager
@@ -365,10 +373,9 @@ def capture_trace(log_dir: str):
     appear as ``ocm:<op>`` ranges on the timeline, around the kernels
     they launch.
     """
-    global _ANNOTATION_CLS
     import torch
     from torch._C._profiler import _ExperimentalConfig
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -378,11 +385,9 @@ def capture_trace(log_dir: str):
     prof = profile(activities=activities, experimental_config=_ExperimentalConfig(
         profile_all_threads=True))
     prof.start()
-    _ANNOTATION_CLS = record_function
     try:
         yield
     finally:
-        _ANNOTATION_CLS = None
         prof.stop()
         n = sum(1 for f in os.listdir(log_dir) if f.endswith(".trace.json"))
         prof.export_chrome_trace(

@@ -44,4 +44,5 @@ def test_phase_8f_on_the_cpu():
     assert r["drained_ranks"] == [0, 1, 2]
     # Everything the phase turned on is off again.
     assert not journal.enabled() and flightrec.segment_dir() is None
-    assert debug._ANNOTATION_CLS is None
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert debug._recording_profiler() is None

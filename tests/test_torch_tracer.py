@@ -4,8 +4,10 @@ debug.py``) on ``torch.profiler``.
 - ``capture_trace(dir)`` on the CPU writes a Chrome trace into ``dir``
   that holds an ``ocm:<op>`` range for each span opened inside it, on the
   calling thread and on others.
-- Outside a capture a span enters no ``record_function`` at all (the
-  span sits on every put and get).
+- Under any running ``torch.profiler`` session, a plain
+  ``torch.profiler.profile()`` as well as ``capture_trace``, each span is
+  an ``ocm:<op>`` range; outside one a span enters no ``record_function``
+  at all (the span sits on every put and get).
 - The JAX package's own tests of the tracer's concurrency
   (``tests/test_tracer.py``): imported and collected here as cases, with
   the port's ``Tracer``, and the port's trace context where the source
@@ -72,34 +74,72 @@ def test_capture_trace_writes_ocm_ranges(tmp_path):
     assert len(glob.glob(str(log_dir / "*.trace.json"))) == 2
 
 
-def test_no_record_function_outside_a_capture(tmp_path, monkeypatch):
-    entered = []
+@pytest.fixture
+def entered(monkeypatch):
+    """The names of the ``record_function`` ranges spans enter."""
+    names = []
 
-    class Counting(torch.profiler.record_function):
+    class Counting(torch.autograd.profiler.record_function):
         def __enter__(self):
-            entered.append(self.name)
+            names.append(self.name)
             return super().__enter__()
 
-    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Counting)
+    return names
+
+
+def _recording() -> bool:
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def test_no_record_function_outside_a_capture(tmp_path, entered):
     tr = debug.Tracer()
     for _ in range(50):
         with tr.span("put", nbytes=4096):
             pass
-    assert entered == [] and debug._ANNOTATION_CLS is None
+    assert entered == [] and not _recording()
     with debug.capture_trace(str(tmp_path)):
         with tr.span("get"):
             pass
     assert entered == ["ocm:get"]
     with tr.span("put"):
         pass
-    assert entered == ["ocm:get"] and debug._ANNOTATION_CLS is None
+    assert entered == ["ocm:get"] and not _recording()
+    assert tr.stats("put").count == 51 and tr.stats("get").count == 1
 
 
-def test_capture_ends_cleanly_when_the_block_raises(tmp_path):
+def test_a_plain_profiler_sees_every_span_as_a_range(entered):
+    """No ``capture_trace``: a profiler anyone starts gets the ranges, one
+    per span, nested as the spans are, and stops getting them with it."""
+    tr = debug.Tracer()
+    with torch.profiler.profile() as prof:
+        with tr.span("kv_fetch_pages"):
+            with tr.span("get"):
+                torch.ones(4).sum()
+        with tr.span("get"):
+            pass
+    assert entered == ["ocm:kv_fetch_pages", "ocm:get", "ocm:get"]
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("ocm:"))
+    assert [n for _, _, n in ranges] == ["ocm:kv_fetch_pages", "ocm:get",
+                                         "ocm:get"]
+    (f0, f1, _), (g0, g1, _) = ranges[:2]
+    assert f0 <= g0 and g1 <= f1
+    assert ranges[2][0] >= f1
+    with tr.span("put"):
+        pass
+    assert len(entered) == 3 and not _recording()
+
+
+def test_capture_ends_cleanly_when_the_block_raises(tmp_path, entered):
     tr = debug.Tracer()
     with pytest.raises(RuntimeError):
         with debug.capture_trace(str(tmp_path)):
             with tr.span("failing"):
                 raise RuntimeError("boom")
-    assert debug._ANNOTATION_CLS is None
+    assert not _recording()
+    with tr.span("after"):
+        pass
+    assert entered == ["ocm:failing"]
     assert "ocm:failing" in _ocm_ranges(tmp_path)
