@@ -22,6 +22,16 @@ nonzero with a traceback and nothing ``ok`` is printed after it:
    over the same calls, ``host_us`` the wrapper's issue time at 4 KiB; the
    plain version and one PyTorch ``copy_`` on the same extents, beside the
    bound 2*nbytes / datasheet HBM rate.
+3a. attention — the paged decode attention kernel (``ops/attn.py``) at the
+   Mixtral decode cell's widths (32 rows, 8 KV heads of 4 query heads,
+   head size 128, bf16; contexts of 1,152 and 2,304 keys plus 64 tail
+   slots of a 128-slot tail) against its plain version (output and the
+   written tail slot); ``ms`` from CUDA events over back-to-back calls,
+   ``device_ms`` the ``torch.profiler`` device time of its kernels a call,
+   ``bound_ms`` the valid K/V bytes over the datasheet HBM rate,
+   ``plain_ms`` the plain version, ``library_ms`` PyTorch's
+   ``scaled_dot_product_attention`` over the concatenated K/V with the same
+   mask (a yardstick the port never calls).
 4. ocm_test loop — ``ocm_init`` on a 16 GiB device arena: alloc, put, get,
    copy and free at 4 KiB .. 1 GiB on LOCAL_DEVICE and LOCAL_HOST, the copy
    matrix, scrub-on-free, the typed errors, the alloc p50; the kernels'
@@ -238,8 +248,9 @@ D. demo — the walkthrough (``python -m oncilla_tpu_torch.examples.demo``,
    sections and "demo complete"; a 1 MiB LOCAL_DEVICE put and get and a
    device->host copy, a REMOTE_HOST put/get and a checkpoint on two
    in-process daemons, 3 train steps of ``LlamaConfig.tiny()`` and 24
-   paged decode steps. Its K1/K2 launches must be those predicted
-   (``DEMO_LAUNCHES``) and no other kernel launched.
+   paged decode steps (the sliced ``.step()`` path, so no A1). Its K1/K2
+   launches must be those predicted (``DEMO_LAUNCHES``) and no other
+   kernel launched.
 
 5m. moe — the MoE family on the serving path, right after D once the
    Llama weights are freed: ``MoeConfig.mixtral_8x7b()`` (dim 4096, 32
@@ -287,8 +298,11 @@ D. demo — the walkthrough (``python -m oncilla_tpu_torch.examples.demo``,
    same state, bit for bit (the mesh adds nothing on one card)
    (``benchmarks/train_mesh.py``).
 
-The last lines are one JSON object with every kernel's numbers, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are one JSON object with every kernel's numbers (the
+copy kernels and the attention kernel A1, each with its launches on every
+main path, counted from 0 before the path and read after it; a kernel no
+main path launched fails the script), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --across-cards`` (two or more cards) runs phases 1-2
 and phase 6's one-sided copies and handle path with the 4 rows on
@@ -360,6 +374,7 @@ _REPLACES = {
     "read_stream": "oncilla_tpu/benchmarks/ceiling.py:91",
     "copy_stream_loop": "oncilla_tpu/benchmarks/ceiling.py:175",
     "vmem_roundtrip": "oncilla_tpu/benchmarks/ceiling.py:259",
+    "attn_decode": "none (XLA's attention)",
 }
 _SOURCE = {
     "write_rows": "oncilla_tpu_torch/csrc/dma.cu",
@@ -371,6 +386,7 @@ _SOURCE = {
     "read_stream": "oncilla_tpu_torch/csrc/ceiling.cu",
     "copy_stream_loop": "oncilla_tpu_torch/csrc/copy_loops.cu",
     "vmem_roundtrip": "oncilla_tpu_torch/csrc/ceiling.cu",
+    "attn_decode": "oncilla_tpu_torch/csrc/attn_decode.cu",
 }
 
 # The ceiling probes' sizes: the JAX probes' defaults (ceiling.py:112-295).
@@ -571,6 +587,89 @@ def phase_kernels(device, arena_bytes: int, sizes, base: int, copy_gap: int,
     del arena
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 3a ---------------------------------------------------------------
+
+# The decode cell's attention: batch 32, Mixtral's 8 KV heads of 4 query
+# heads and head size 128, a 128-slot tail holding 64 tokens.
+ATTN_SHAPE = {"B": 32, "KV": 8, "G": 4, "D": 128, "P": 128, "tail_len": 64}
+ATTN_CONTEXTS = (1152, 2304)
+
+
+def _attn_device_ms(fn, iters: int) -> float:
+    """The device time of ``fn``'s attention kernels a call, from
+    ``torch.profiler`` over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "attn_decode" in e.key)
+    return us * 1e-3 / iters
+
+
+def phase_attn(device, rate: float, iters: int = 50) -> list:
+    """Phase 3a (module docstring): one record a context length."""
+    import torch.nn.functional as F
+
+    from oncilla_tpu_torch.ops import attn
+
+    B, KV, G, D, P, tail_len = (ATTN_SHAPE[k] for k in ("B", "KV", "G", "D", "P",
+                                                         "tail_len"))
+    gen = torch.Generator(device=device).manual_seed(22)
+    dt = torch.bfloat16
+    rows = []
+    for C in ATTN_CONTEXTS:
+        def r(*s):
+            return torch.randn(*s, generator=gen, device=device).to(dt)
+
+        q, kn, vn = r(B, KV * G, 1, D), r(B, KV, 1, D), r(B, KV, 1, D)
+        k_ctx, v_ctx, tail_k, tail_v = r(B, KV, C, D), r(B, KV, C, D), \
+            r(B, KV, P, D), r(B, KV, P, D)
+        meta = torch.tensor([[C + tail_len, tail_len, C, 0]] * B, device=device)
+        mask, slot = attn.decode_masks(meta, C, P, None)
+        ref_k, ref_v = tail_k.clone(), tail_v.clone()
+        want = attn.attn_decode_plain(q, kn, vn, k_ctx, v_ctx, ref_k, ref_v, mask, slot)
+        before = attn.attn_decode.launches
+        got = attn.attn_decode(q, kn, vn, k_ctx, v_ctx, tail_k, tail_v, meta, None)
+        torch.cuda.synchronize(device)
+        launches = attn.attn_decode.launches - before
+        err = float((got.float() - want.float()).abs().max())
+        if err > 2 ** -7 * float(want.float().abs().max()) or not (
+                torch.equal(tail_k, ref_k) and torch.equal(tail_v, ref_v)):
+            raise AssertionError(f"attn_decode differs from its plain version at "
+                                 f"C {C}: max abs error {err}")
+        nbytes = 2 * B * KV * (C + tail_len + 1) * D * 2  # the valid K/V
+        rec = {"C": C, "keys": C + tail_len + 1, "launches_a_call": launches,
+               "splits": attn.splits(C + P, B * KV, attn.slots(q, G)),
+               "resident_ctas": attn.slots(q, G), "max_abs_err": err,
+               "nbytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        k_all = torch.cat([k_ctx, tail_k], 2)
+        v_all = torch.cat([v_ctx, tail_v], 2)
+        sdpa_mask = mask[:, :, None, :]
+        fns = {
+            "ms": lambda: attn.attn_decode(q, kn, vn, k_ctx, v_ctx, tail_k,
+                                           tail_v, meta, None),
+            "plain_ms": lambda: attn.attn_decode_plain(
+                q, kn, vn, k_ctx, v_ctx, tail_k, tail_v, mask, slot),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                q, k_all, v_all, attn_mask=sdpa_mask, enable_gqa=True),
+        }
+        for key, fn in fns.items():
+            rec[key] = event_ms(fn, iters)
+        rec["device_ms"] = _attn_device_ms(fns["ms"], iters)
+        rec["hbm_share"] = rec["bound_ms"] / rec["device_ms"]
+        rows.append(rec)
+        log(f"[attn] {json.dumps(rec)}")
+        del q, kn, vn, k_ctx, v_ctx, tail_k, tail_v, ref_k, ref_v
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4947,6 +5046,9 @@ def main(argv=None) -> int:
                          copy_gap=4 * GiB + 4096, rate=card["hbm_rate"],
                          timed=(page, GiB))
     log(f"[kernels] phase {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    attn_r = phase_attn(device, card["hbm_rate"])
+    log(f"[attn] phase {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
     dma.reset_launches()
@@ -5053,12 +5155,12 @@ def main(argv=None) -> int:
                  "fabric_handles": fab["launches_handles"],
                  "copy_bench": fab["launches_copy_bench"],
                  "bench": bench["launches"], "train": trn["launches"]}
-    rows_by_kernel = {**kern, **fab["rows"], **bench["rows"]}
+    rows_by_kernel = {**kern, **fab["rows"], **bench["rows"], "attn_decode": attn_r}
     line = []
     for name, rows in rows_by_kernel.items():
         # K1-K4 are reported at one cold KV page across rows, with their
         # device and host times; K6-K10 at the timed launch of copy_bench or
-        # of the ceiling probe.
+        # of the ceiling probe; A1 at phase 3a's shorter context.
         timed = [r for r in rows if "bound_ms" in r]
         at = next((r for r in timed if r["nbytes"] == page
                    and r.get("case", "cross_row") == "cross_row"), timed[0])
@@ -5084,7 +5186,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
     detail = fab["bench"]["detail"]
     summary = {
-        "card": card["smi"], "build_s": build_s,
+        "card": card["smi"], "build_s": build_s, "attn_decode": attn_r,
         "alloc_p50_us": loop["alloc_p50_us"], "tok_s": serving["tok_s"],
         "profile": serving["profile"],
         "requests": serving["requests"],

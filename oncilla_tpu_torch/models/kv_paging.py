@@ -44,6 +44,7 @@ from oncilla_tpu_torch.core.kinds import OcmKind
 from oncilla_tpu_torch.models import llama
 from oncilla_tpu_torch.models.graphs import StepGraphs
 from oncilla_tpu_torch.models.llama import LlamaConfig, torch_dtype
+from oncilla_tpu_torch.ops import attn
 from oncilla_tpu_torch.utils.debug import GLOBAL_TRACER
 
 
@@ -212,38 +213,32 @@ def paged_token_step(
     ``_paged_token`` (kv_paging.py:260) with the per-row ``meta`` of its
     batched step (:320). Row b attends over its first ``ctx_len`` context
     keys (global positions from ``ctx_start``) and its tail slots through
-    ``tail_len``, within the sliding window; every other key is masked
-    (-1e30). Row b's new K/V go into its tail slot ``tail_len``, in place.
-    Every scalar lives in ``meta`` on the device and no shape depends on
-    it, so the step is the same kernels at every position: what a CUDA
-    graph captures. Returns (logits (B, vocab) fp32, tail_k, tail_v);
-    ``layer_params_fn``/``mlp_of`` are the family hooks (module doc)."""
+    ``tail_len``, within the sliding window. Row b's new K/V go into its
+    tail slot ``tail_len``, in place. On the card a layer's attention is
+    one kernel that reads the valid keys alone (:mod:`..ops.attn`), which
+    raises on inputs it does not take; on the CPU plain PyTorch masks every
+    other key (-1e30). Every scalar lives in ``meta`` on the device
+    and no shape depends on it, so the step is the same kernels at every
+    position: what a CUDA graph captures. Returns (logits (B, vocab) fp32,
+    tail_k, tail_v); ``layer_params_fn``/``mlp_of`` are the family hooks
+    (module doc)."""
     lp_fn = layer_params_fn or llama.layer_params
-    dev = tokens.device
     P, C = tail_k.shape[3], k_ctx.shape[3]
-    pos, tail_len, ctx_len, ctx_start = meta.unbind(1)
     x = params["embed"][tokens][:, None, :].to(torch_dtype(cfg.dtype))
-    ar_c = torch.arange(C, device=dev)[None, :]
-    ar_p = torch.arange(P, device=dev)[None, :]
-    valid = torch.cat([ar_c < ctx_len[:, None], ar_p <= tail_len[:, None]], 1)
-    if cfg.window is not None:
-        gpos = torch.cat([ctx_start[:, None] + ar_c,
-                          (pos - tail_len)[:, None] + ar_p], 1)
-        valid &= gpos > (pos[:, None] - cfg.window)
-    mask = valid[:, None, :]                                  # (B, 1, C + P)
-    slot = (ar_p == tail_len[:, None])[:, None, :, None]      # (B, 1, P, 1)
+    positions = meta[:, :1]  # (B, 1): each row's pos
+    masks = functools.cache(lambda: attn.decode_masks(meta, C, P, cfg.window))
 
     for i in range(cfg.n_layers):
         def attend(q, kn, vn, i=i):
             with GLOBAL_TRACER.span("attention"):
-                tail_k[i] = torch.where(slot, kn.to(tail_k.dtype), tail_k[i])
-                tail_v[i] = torch.where(slot, vn.to(tail_v.dtype), tail_v[i])
-                k_all = torch.cat([k_ctx[i].to(q.dtype), tail_k[i].to(q.dtype)], 2)
-                v_all = torch.cat([v_ctx[i].to(q.dtype), tail_v[i].to(q.dtype)], 2)
-                return llama.grouped_attention(q, k_all, v_all, mask)
+                if q.is_cuda:
+                    return attn.attn_decode(q, kn, vn, k_ctx[i], v_ctx[i], tail_k[i],
+                                            tail_v[i], meta, cfg.window)
+                return attn.attn_decode_plain(q, kn, vn, k_ctx[i], v_ctx[i], tail_k[i],
+                                              tail_v[i], *masks())
 
         lp = lp_fn(params, i)
-        x = llama.block(cfg, x, lp, pos[:, None], attend,
+        x = llama.block(cfg, x, lp, positions, attend,
                         mlp=mlp_of(lp) if mlp_of else None)
 
     return llama.final_logits(params, x, cfg)[:, 0], tail_k, tail_v

@@ -144,11 +144,19 @@ def _target(src: Path) -> Path:
 
 
 def build() -> float:
-    """Compile every source under ``csrc/`` that has no up-to-date library,
-    one ``nvcc`` per source, all started together. Returns the seconds it
-    took; raises with the compiler's output if any build fails. ptxas's
-    register/spill report of each source lands in ``BUILD_LOG``."""
+    """Compile every source under ``csrc/`` that has no up-to-date library
+    (:func:`compile_sources`). Returns the seconds it took."""
     t0 = time.perf_counter()
+    compile_sources()
+    return time.perf_counter() - t0
+
+
+def compile_sources() -> None:
+    """Compile every source under ``csrc/`` that has no up-to-date library,
+    one ``nvcc`` per source, all started together; raises with the
+    compiler's output if any build fails. ptxas's register/spill report of
+    each source lands in ``BUILD_LOG``. Untimed: :func:`library` runs it
+    on the launch path of kernels that a CUDA graph captures."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in _SOURCES:
@@ -171,7 +179,6 @@ def build() -> float:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 VP, LL, CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -188,7 +195,7 @@ def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
     with _lib_lock:
         lib = _libs.get(source)
         if lib is None:
-            build()
+            compile_sources()
             lib = ctypes.CDLL(str(_target(_CSRC / source)))
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
@@ -372,13 +379,13 @@ local_copy.launches = 0
 def kernels() -> tuple:
     """The wrapper of every kernel of the port, each with its ``launches``
     count: K1-K3 here, K4 in :mod:`.fabric`, K6-K8 in :mod:`.ceiling_loops`,
-    K9/K10 in :mod:`.copy_loops`."""
-    from oncilla_tpu_torch.ops import ceiling_loops, copy_loops, fabric
+    K9/K10 in :mod:`.copy_loops`, A1 in :mod:`.attn`."""
+    from oncilla_tpu_torch.ops import attn, ceiling_loops, copy_loops, fabric
 
     return (write_rows, read_rows, local_copy, fabric.onesided_copy,
             ceiling_loops.read_stream, ceiling_loops.copy_stream_loop,
             ceiling_loops.vmem_roundtrip, copy_loops.copy_loop,
-            copy_loops.remote_loop)
+            copy_loops.remote_loop, attn.attn_decode)
 
 
 def reset_launches() -> None:

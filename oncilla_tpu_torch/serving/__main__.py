@@ -770,7 +770,8 @@ def smoke(seed: int, mux: bool | None = None, device=None) -> int:
           f"{wb['prefix_hit_ratio']['warm']}; mean TTFT "
           f"cold {wb['ttft_mean_s']['cold']}s -> warm "
           f"{wb['ttft_mean_s']['warm']}s; byte-exact, replay identical")
-    # The copy kernels' launches of this process (HOT page puts and gets).
+    # The kernels' launches of this process (HOT page puts and gets, the
+    # token steps' attention).
     print("serving smoke: launches " + json.dumps(dma.launches()))
     print("serving smoke: OK — paired cells byte-identical, sharing "
           "measurably cheaper, CoW exercised, chaos decode byte-exact "
@@ -782,7 +783,7 @@ def smoke(seed: int, mux: bool | None = None, device=None) -> int:
 def run_bench(seed: int = 1234, *, chaos: bool = True,
               batched: bool = True, device=None) -> dict:
     """The measured cells for the bench's ``detail.serving``; ``launches``
-    counts the copy kernels' launches of this process."""
+    counts the kernels' launches of this process."""
     from oncilla_tpu_torch.obs import audit as obs_audit
     from oncilla_tpu_torch.ops import dma
 

@@ -33,6 +33,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(scope="session", autouse=True)
 def _assert_cpu_mesh():
     assert jax.default_backend() == "cpu", jax.default_backend()

@@ -148,9 +148,10 @@ def test_graph_capture_resolves_across_modules():
 
 
 def _seed_host_read(tmp_path, module: str, qualname: str) -> Path:
-    """The port's models and serving engine copied under ``tmp_path``
-    with ``torch.zeros(1).item()`` before the last statement of
-    ``module``'s ``qualname``; returns the copy's package directory."""
+    """The port's models, the attention op the paged step calls and the
+    serving engine copied under ``tmp_path`` with ``torch.zeros(1).item()``
+    before the last statement of ``module``'s ``qualname``; returns the
+    copy's package directory."""
     import ast
     import shutil
 
@@ -162,7 +163,9 @@ def _seed_host_read(tmp_path, module: str, qualname: str) -> Path:
                     ignore=shutil.ignore_patterns("__pycache__"))
     (pkg / "serving").mkdir()
     shutil.copy(src / "serving" / "engine.py", pkg / "serving" / "engine.py")
-    for d in (pkg, pkg / "serving"):
+    (pkg / "ops").mkdir()
+    shutil.copy(src / "ops" / "attn.py", pkg / "ops" / "attn.py")
+    for d in (pkg, pkg / "serving", pkg / "ops"):
         (d / "__init__.py").write_text("")
     path = pkg / "models" / f"{module}.py"
     text = path.read_text()
