@@ -1,6 +1,8 @@
 """Adapter of the batch-decode mixes: one batch of sequences through
-``oncilla_tpu_torch.models.kv_paging.BucketedPagedDecoder`` with the MoE
-family's hooks (``moe.paged_hooks``), its KV history in OCM pages.
+``oncilla_tpu_torch.models.kv_paging.BucketedPagedDecoder`` with the model
+family's config and hooks (``port_config``, ``paged_hooks`` of
+:mod:`e2ebench.families`; the MoE family's are ``moe.paged_hooks``), its KV
+history in OCM pages.
 
 Set-up teacher-forces the seeded prompts a page at a time
 (``step_page``, through one ``StepGraphs``) and generates one page to warm
@@ -15,21 +17,7 @@ import time
 
 import torch
 
-from e2ebench import gen
-from e2ebench.weights import dims
-
-
-def port_config(cfg: dict):
-    from oncilla_tpu_torch.models.moe import MoeConfig
-
-    d = dims(cfg)
-    return MoeConfig(vocab=d["vocab"], dim=d["dim"], n_layers=d["layers"],
-                     n_heads=d["heads"], n_kv_heads=d["kv_heads"],
-                     ffn_hidden=d["ffn"], max_seq=cfg["max_position_embeddings"],
-                     rope_theta=d["rope_theta"], norm_eps=d["eps"],
-                     dtype=cfg["torch_dtype"], window=d["window"],
-                     n_experts=d["experts"], top_k=d["top_k"],
-                     capacity_factor=float(cfg["capacity_factor"]))
+from e2ebench import families, gen
 
 
 class Adapter:
@@ -37,12 +25,13 @@ class Adapter:
                  log):
         import oncilla_tpu_torch as ocm
         from oncilla_tpu_torch import OcmKind
-        from oncilla_tpu_torch.models import kv_paging, moe
+        from oncilla_tpu_torch.models import kv_paging
         from oncilla_tpu_torch.models.graphs import StepGraphs
 
         self.cfg, self.mix, self.seed, self.device, self.log = (
             cfg, mix, seed, device, log)
-        self.pcfg = port_config(cfg)
+        family = families.of(cfg)
+        self.pcfg = family.port_config(cfg)
         P, B = mix["page_tokens"], mix["batch"]
         self.page_bytes = kv_paging.page_bytes(self.pcfg, P, cfg["torch_dtype"],
                                                B)
@@ -56,9 +45,9 @@ class Adapter:
             params, self.pcfg, self.ctx, batch=B, page_tokens=P,
             kind=getattr(OcmKind, mix["ocm_kind"]), dtype=cfg["torch_dtype"],
             refetch=mix["refetch"], graphs=self.graphs,
-            **moe.paged_hooks(self.pcfg))
+            **family.paged_hooks(self.pcfg))
         self.prompts = torch.from_numpy(
-            gen.batch_prompts(mix, seed, dims(cfg)["vocab"])).to(device)
+            gen.batch_prompts(mix, seed, family.dims(cfg)["vocab"])).to(device)
         self.served = []               # (B, n) blocks of served ids
         self.pages = []                # (end time, context before, tokens)
         self.next = None

@@ -17,8 +17,7 @@ import time
 
 import torch
 
-from e2ebench import gen
-from e2ebench.weights import dims
+from e2ebench import families, gen
 
 
 class Request:
@@ -38,17 +37,6 @@ class Request:
         self.reused = 0
 
 
-def port_config(cfg: dict):
-    from oncilla_tpu_torch.models.llama import LlamaConfig
-
-    d = dims(cfg)
-    return LlamaConfig(vocab=d["vocab"], dim=d["dim"], n_layers=d["layers"],
-                       n_heads=d["heads"], n_kv_heads=d["kv_heads"],
-                       ffn_hidden=d["ffn"], max_seq=cfg["max_position_embeddings"],
-                       rope_theta=d["rope_theta"], norm_eps=d["eps"],
-                       dtype=cfg["torch_dtype"], window=d["window"])
-
-
 class Adapter:
     def __init__(self, cfg: dict, mix: dict, seed: int, device, params: dict,
                  log):
@@ -60,7 +48,8 @@ class Adapter:
 
         self.cfg, self.mix, self.seed, self.device, self.log = (
             cfg, mix, seed, device, log)
-        self.pcfg = port_config(cfg)
+        family = families.of(cfg)
+        self.pcfg = family.port_config(cfg)
         e = mix["engine"]
         page = ServingEngine.page_nbytes(self.pcfg, e["page_tokens"],
                                          e["store_dtype"])
@@ -79,7 +68,7 @@ class Adapter:
             prefetch_workers=e["prefetch_workers"],
             store_dtype=e["store_dtype"], batched=True,
             max_batch=e["max_batch"], name="e2ebench")
-        self.clients = gen.chat_clients(mix, seed, dims(cfg)["vocab"])
+        self.clients = gen.chat_clients(mix, seed, family.dims(cfg)["vocab"])
         self.requests: dict[str, Request] = {}
         self.finished: list[Request] = []
         self.ticks = 0

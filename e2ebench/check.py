@@ -12,16 +12,17 @@ reference margin happened to be widest among those that rounding flipped
 swings from sample to sample as much as the control's does; the mean
 counts every flip and keeps the two apart (PERF.md).
 
-The control reads the same positions with the reference in float8
-(:func:`reference.decoder.logits_at` with ``precision="float8"``) in the
-program's place: the gap of the token the float8 forward puts first.
+Both sides are the configuration's family's reference (``logits_at`` of
+:mod:`e2ebench.families`). The control reads the same positions with the
+reference in float8 (``precision="float8"``) in the program's place: the
+gap of the token the float8 forward puts first.
 """
 
 from __future__ import annotations
 
 import torch
 
-from e2ebench.reference.decoder import logits_at
+from e2ebench import families
 
 
 def _positions(prompt, out):
@@ -32,7 +33,7 @@ def _positions(prompt, out):
 def gaps(params, cfg, prompt, out) -> torch.Tensor:
     """The reference gap of every served token of one request."""
     ids, wanted = _positions(prompt, out)
-    ref = logits_at(params, cfg, ids, wanted)
+    ref = families.of(cfg).logits_at(params, cfg, ids, wanted)
     tok = torch.tensor(out, device=ref.device)
     return (ref.max(-1).values - ref.gather(1, tok[:, None])[:, 0]).cpu()
 
@@ -43,6 +44,7 @@ def control_gaps(params, cfg, prompt, out):
     over the layers at every position that feeds them; the last None
     without experts) at the same positions."""
     ids, wanted = _positions(prompt, out)
+    logits_at = families.of(cfg).logits_at
     margins = []
     ref = logits_at(params, cfg, ids, wanted, margins=margins)
     low = logits_at(params, cfg, ids, wanted, precision="float8")

@@ -3,8 +3,9 @@
     python3 e2ebench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
-its configuration file, its traffic mix (``traffic/<name>.json``), the
-adapter the mix names (``adapters/<name>.py``), its limits
+its configuration file, the model family its ``model_type`` names
+(``families/<model_type>.py``), its traffic mix (``traffic/<name>.json``),
+the adapter the mix names (``adapters/<name>.py``), its limits
 (``cells/<cell>.json``) and a reader a per-layer metric
 (``metrics/<name>.py``). A run makes the weights and inputs from the seed,
 sets the system up and warms every shape the traffic meets (``setup_s``),
@@ -96,7 +97,9 @@ def power_limit() -> str:
 
 
 class Readings:
-    """What a per-layer metric's reader reads."""
+    """What a per-layer metric's reader reads; ``d`` is the model's sizes
+    (its family's ``dims``) and ``family`` the family module
+    (:mod:`e2ebench.families`)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -126,11 +129,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     drives yet) are the CPU rehearsal's (the tests'): a card run takes
     none. ``control`` also reads the control
     (``calibrate.py``); the benchmark's own runs never do."""
-    from e2ebench import check, devtrace, weights, yardstick
-    from e2ebench.weights import dims
+    from e2ebench import check, devtrace, families, weights, yardstick
 
     spec = spec or load_cell(workload)
     cfg, mix = spec["cfg"], spec["mix"]
+    family = families.of(cfg)
     chips = spec["cell"]["chips"]
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -163,7 +166,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         f"{inside}; memory_peak_bytes {peak}; reserved "
         f"{torch.cuda.memory_reserved(device) if on_card else 0}")
     tsum = stretch.read() if stretch is not None else None
-    d = dims(cfg)
+    d = family.dims(cfg)
     peak_flops, peak_hbm = yardstick.peaks(kind) if on_card else (None, None)
 
     e2e = {m["name"]: end_to_end(m["name"], samples, setup_s)
@@ -177,7 +180,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             if e2e[m["name"]] is not None:
                 metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
     elif on_card:
-        r = Readings(d=d, start=win["start"], end=win["end"],
+        r = Readings(d=d, family=family, start=win["start"], end=win["end"],
                      trace=tsum, computed=adapter.computed_tokens(),
                      window_s=samples["seconds"] - stretch.overhead_s,
                      peak_flops=peak_flops,

@@ -1,8 +1,10 @@
 """Seeded weights, made by the benchmark and handed to both the system and
-the reference: the leaves of the decoder the configuration describes, in
-the layout the system's parameter dict takes (layers stacked on a leading
-axis, weights ``(in, out)``), drawn on the device by one generator in one
-call a leaf, in the dtype they are served in. Norm gains are float32 ones.
+the reference: the leaves of the decoder the configuration describes (its
+family's ``leaves``), in the layout the system's parameter dict takes
+(layers stacked on a leading axis, weights ``(in, out)``), drawn on the
+device by one generator in one call a leaf, in the dtype they are served
+in. Norm gains are float32 ones. ``dims`` and ``leaves`` here are those of
+the Mistral and Mixtral families.
 """
 
 from __future__ import annotations
@@ -11,10 +13,13 @@ import math
 
 import torch
 
+from e2ebench import families
+
 
 def dims(cfg: dict) -> dict:
-    """The sizes every module of the benchmark reads from a configuration
-    file (Hugging Face ``config.json`` keys)."""
+    """The sizes the benchmark's modules read (a family's ``dims``), from a
+    Mistral or Mixtral configuration file (Hugging Face ``config.json``
+    keys)."""
     d = {
         "vocab": cfg["vocab_size"], "dim": cfg["hidden_size"],
         "layers": cfg["num_hidden_layers"], "heads": cfg["num_attention_heads"],
@@ -61,11 +66,13 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def make(cfg: dict, seed: int, device) -> dict:
-    """Every leaf of ``cfg``'s decoder in its ``torch_dtype``."""
+    """Every leaf of ``cfg``'s decoder, as its family lists them
+    (:mod:`e2ebench.families`), in its ``torch_dtype``."""
+    shapes = families.of(cfg).leaves(cfg)
     dtype = getattr(torch, cfg["torch_dtype"])
     g = generator(seed, device)
     out = {}
-    for name, (shape, scale) in leaves(cfg).items():
+    for name, (shape, scale) in shapes.items():
         if scale is None:
             out[name] = torch.ones(shape, dtype=torch.float32, device=device)
         else:
